@@ -5,7 +5,8 @@
 
 Phases, each raising on failure:
   1. the card's name and power limit (nvidia-smi);
-  2. build of the CUDA kernels from csrc/ (nvcc, sm_90a), timed;
+  2. build of the CUDA kernels from csrc/ (nvcc, sm_90a, one process per
+     source), timed, with ptxas's register and spill report;
   3. the blind-rotation kernel against its plain PyTorch version, bit for
      bit, on random accumulators (8 rows) at five parameter sets;
   4. Context(ek, "cuda").nand on the four input pairs at tfhepp_128bit
@@ -14,19 +15,33 @@ Phases, each raising on failure:
      outputs at batch 4096, tfhepp_128bit -> decrypt, with 0 decrypt
      errors and one kernel launch per gate; gates/s;
   6. one blind rotation at the main path's shape through the kernel and
-     through the plain version: equal, and both timed with CUDA events.
+     through the plain version: equal, and both timed with CUDA events;
+  7. the tensor-core probe kernel (csrc/mxu_peak.cu) against its plain
+     version, bit for bit: all four variants at the small shape, pure and
+     place at the full S = 18 shape; then the probe's path
+     (benchmarks.mxu_peak.run_probe: library rows and kernel rows beside
+     their plain versions, CUDA events), counted;
+  8. the bootstrapping paths at tiny presets on the card, equal as uint32
+     to golden: lvl1 gates, mux/nmux at both levels, gate_rows,
+     gate_chain, cmux, refresh, programmable_bootstrap, pbs_many;
+  9. the same paths at full width (tfhepp_128bit, batch 4096, ciphertexts
+     on the device): 0 decrypt errors, equality with golden on 2 rows
+     (computed in worker processes while the card runs), one kernel
+     launch per blind rotation; gates/s of the lvl1 NAND and the mux.
 
 Prints the card line, a {"kernels": [...]} line, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
-The client side (keygen, encrypt, decrypt) and the gate oracle are the
-port's NumPy module cufhe_tpu_torch.golden; neither JAX nor the JAX package
-is imported.
+The client side (keygen, encrypt, decrypt) and the oracle are the port's
+NumPy module cufhe_tpu_torch.golden; neither JAX nor the JAX package is
+imported.
 """
 import json
+import multiprocessing
 import os
 import statistics
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 BATCH = 4096
@@ -34,6 +49,14 @@ ITERS = 4
 REPS = 2
 SOURCE = "cufhe_tpu_torch/csrc/blind_rotate.cu"
 REPLACES = "cufhe_tpu/ops/pallas_br.py:762"
+PROBE_SOURCE = "cufhe_tpu_torch/csrc/mxu_peak.cu"
+PROBE_REPLACES = "benchmarks/mxu_peak.py:116"
+#: rows of each full-width result held against golden (seconds each)
+GOLDEN_ROWS = (0, BATCH - 1)
+WORKERS = 6
+#: the device of phases 8 and 9
+DEV = "cuda"
+MIXED = ("nand", "xor", "andyn", "orny")
 
 
 def log(msg: str) -> None:
@@ -72,6 +95,315 @@ def random_rotation_inputs(params, rows: int, seed: int, device):
             from_u32(abar.astype(np.uint32), device))
 
 
+# -- golden jobs for worker processes (phase 9) ------------------------------
+_EK = None
+
+
+def _pool_init(ek) -> None:
+    global _EK
+    _EK = ek
+
+
+def _g_gate(level: int, name: str, x, y):
+    from cufhe_tpu_torch import golden as G
+    fn = G.gate_lvl0 if level == 0 else G.gate_lvl1
+    return fn(name, x, y, _EK)
+
+
+def _g_chain(names, x, y):
+    from cufhe_tpu_torch import golden as G
+    for nm in names:
+        x = G.gate_lvl0(nm, x, y, _EK)
+    return x
+
+
+def _g_mux(c, x, y):
+    from cufhe_tpu_torch import golden as G
+    return G.mux_lvl0(c, x, y, _EK)
+
+
+def _g_pbs_many(ct, tv, J: int, theta: int):
+    from cufhe_tpu_torch import golden as G
+    return G.pbs_many(ct, tv, J, _EK, theta=theta)
+
+
+def _g_b2t_refresh(ct):
+    """bootstrap_tlwe2trlwe -> refresh -> sei_and_ks of one lvl0 row."""
+    from cufhe_tpu_torch import golden as G
+    tr = G.bootstrap_tlwe2trlwe(ct, _EK.params.lvl1.mu, _EK)
+    rf = G.refresh(tr, _EK)
+    return tr, rf, G.sei_and_ks(rf, _EK)
+
+
+def phase_probe(info: dict, tag: str) -> dict:
+    """7. The probe kernel against its plain version, then the probe's
+    path with the launch count zeroed just before it."""
+    import numpy as np
+    import torch
+    from cufhe_tpu_torch.benchmarks import mxu_peak as MP
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(9)
+    max_err = 0
+    M, K, W, S, _ = MP.FULL
+    for shape, variants in ((MP.SMALL, MP.VARIANTS),
+                            ((M, K, W, S, 1), ("pure", "place"))):
+        for v in variants:
+            A, X = MP.make_operands(rng, v, *shape[:4], dev)
+            got = MP.mxu_peak_cuda(A, MP.prepare_x(X), v, shape[4])
+            want = MP.mxu_peak_ref(A, X, v, shape[4])
+            torch.cuda.synchronize()
+            err = int((got.long() - want.long()).abs().max())
+            log(f"mxu_peak kernel vs plain, {v}, (M, K, W, S, steps) = "
+                f"{shape}: max_abs_err {err}")
+            if err != 0:
+                raise AssertionError(f"mxu_peak {v} disagrees at {shape}")
+    MP.mxu_peak_cuda.launches = 0
+    rows = MP.run_probe(info, emit=lambda line: log("  probe " + line))
+    launches = MP.mxu_peak_cuda.launches
+    for r in rows:
+        line = f"  {r['case']}: {r['tmacs_per_sec']:.2f} TMAC/s"
+        if r["path"] == "kernel":
+            line += (f" ({r['instruction']}, {r['ms']:.3f} ms) vs plain "
+                     f"{r['plain_tmacs_per_sec']:.2f} TMAC/s "
+                     f"({r['plain_ms']:.3f} ms), max_abs_err "
+                     f"{r['max_abs_err']}")
+        log(line + f" {tag}")
+        max_err = max(max_err, r.get("max_abs_err", 0))
+    if max_err or launches == 0:
+        raise AssertionError(f"probe failed: max_abs_err {max_err}, "
+                             f"{launches} kernel launches")
+    main_row = next(r for r in rows if r["case"] == "pallas-pure-w512")
+    return {"launches": launches, "max_abs_err": max_err,
+            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"]}
+
+
+def phase_tiny_paths() -> None:
+    """8. Every new path at tiny presets on the card, as uint32 equal to
+    golden."""
+    import numpy as np
+    import cufhe_tpu_torch as T
+    from cufhe_tpu_torch import golden as G
+    from cufhe_tpu_torch.models.gates import TWO_INPUT
+    from cufhe_tpu_torch.ops import bootstrap as B
+    from cufhe_tpu_torch.torus import from_u32, to_u32
+
+    bits0, bits1, bitsc = [0, 1, 0, 1], [0, 0, 1, 1], [0, 1, 1, 0]
+    for i, params in enumerate((T.TINY, T.TINY_K2, T.PALLAS_BG10)):
+        sk = G.keygen(params, seed=500 + i)
+        ek = G.make_eval_key(sk, seed=510 + i)
+        ctx = T.Context(ek, device=DEV)
+        rng = np.random.default_rng(520 + i)
+        lp = params.lvl1
+        checks = []
+
+        def same(what, got, want):
+            if not np.array_equal(to_u32(got), np.asarray(want)):
+                raise AssertionError(f"{what} at {params.name} disagrees "
+                                     f"with golden")
+            checks.append(what)
+
+        def rows(fn, *cols):
+            return np.stack([fn(*r) for r in zip(*cols)])
+
+        for level in (0, 1):
+            a, b, c = (T.encrypt_bits(bits, sk, rng, device=DEV,
+                                      level=level)
+                       for bits in (bits0, bits1, bitsc))
+            ha, hb, hc = (to_u32(x.data) for x in (a, b, c))
+            gate = G.gate_lvl0 if level == 0 else G.gate_lvl1
+            mux = G.mux_lvl0 if level == 0 else G.mux_lvl1
+            if level == 1:
+                for name in TWO_INPUT:
+                    same(f"lvl1 {name}", ctx.gate(name, a, b).data,
+                         rows(lambda x, y: gate(name, x, y, ek), ha, hb))
+            for negate in (False, True):
+                same(f"lvl{level} {'nmux' if negate else 'mux'}",
+                     ctx.mux(c, a, b, negate=negate).data,
+                     rows(lambda x, y, z: mux(x, y, z, ek, negate=negate),
+                          hc, ha, hb))
+            mu = lp.mu if level else params.lvl0.mu
+            consts = B.encode_gate_consts_rows(["xor", "andyn"], mu, DEV)
+            same(f"lvl{level} gate_rows", ctx.gate_rows(consts, a, b).data,
+                 rows(lambda nm, x, y: gate(nm, x, y, ek),
+                      ["xor", "xor", "andyn", "andyn"], ha, hb))
+            want = ha
+            for nm in MIXED:
+                want = rows(lambda x, y: gate(nm, x, y, ek), want, hb)
+            same(f"lvl{level} gate_chain",
+                 ctx.gate_chain(MIXED, a, b).data, want)
+        tg = G.trgsw_encrypt(1, lp, sk.lvl1, rng)
+        c1, c0, tr = (np.stack([G.trlwe_encrypt_zero(lp, sk.lvl1, rng)
+                                for _ in range(2)]) for _ in range(3))
+        same("cmux", ctx.cmux(ctx.prepare_trgsw(tg),
+                              T.TrlweCtxt(from_u32(c1, DEV)),
+                              T.TrlweCtxt(from_u32(c0, DEV))).data,
+             rows(lambda x, y: G.cmux(tg, x, y, lp), c1, c0))
+        same("refresh", ctx.refresh(T.TrlweCtxt(from_u32(tr, DEV))).data,
+             rows(lambda x: G.refresh(x, ek), tr))
+        a = T.encrypt_bits(bits0, sk, rng, device=DEV)
+        ha = to_u32(a.data)
+        tv = rng.integers(0, 1 << 32, lp.n, dtype=np.uint64).astype(np.uint32)
+        same("programmable_bootstrap", ctx.programmable_bootstrap(a, tv).data,
+             rows(lambda x: G.programmable_bootstrap(x, tv, ek), ha))
+        for theta in (0, 1, 2):
+            J = 1 << theta
+            same(f"pbs_many theta={theta}",
+                 B.pbs_many(a.data, from_u32(tv, DEV), J, ctx.keys, params,
+                            theta=theta),
+                 np.stack([G.pbs_many(x, tv, J, ek, theta=theta)
+                           for x in ha], axis=1))
+        log(f"paths at {params.name} on the card: {len(checks)} results "
+            f"equal to golden as uint32 ({', '.join(checks)})")
+
+
+def phase_full_width(ctx, sk, ek, tag: str) -> None:
+    """9. The new paths at tfhepp_128bit, batch 4096, device-resident:
+    decrypt, golden on GOLDEN_ROWS (worker processes, concurrently with
+    the card), one kernel launch per blind rotation."""
+    import numpy as np
+    import torch
+    import cufhe_tpu_torch as T
+    from cufhe_tpu_torch import golden as G
+    from cufhe_tpu_torch.models.gates import TWO_INPUT
+    from cufhe_tpu_torch.ops import blind_rotate as BR
+    from cufhe_tpu_torch.ops import bootstrap as B
+    from cufhe_tpu_torch.ops.keyswitch import key_switch
+    from cufhe_tpu_torch.torus import from_u32, to_u32
+
+    p = ek.params
+    lp = p.lvl1
+    rng = np.random.default_rng(11)
+    bits0, bits1, bitsc = (rng.integers(0, 2, BATCH) for _ in range(3))
+    a1, b1 = (T.encrypt_bits(x, sk, rng, device=DEV, level=1)
+              for x in (bits0, bits1))
+    a0, b0, c0 = (T.encrypt_bits(x, sk, rng, device=DEV)
+                  for x in (bits0, bits1, bitsc))
+    ha1, hb1, ha0, hb0, hc0 = (to_u32(x.data) for x in (a1, b1, a0, b0, c0))
+    names16 = list(TWO_INPUT) + list(TWO_INPUT[:6])    # 16 divides 4096
+    per_row = [names16[r // (BATCH // 16)] for r in range(BATCH)]
+    # LUT 0 = the bit, LUT 1 = its negation: tv[w] = mu, tv[w + 1] = -mu
+    tv = np.where(np.arange(lp.n) % 2 == 0, lp.mu,
+                  (1 << 32) - lp.mu).astype(np.uint32)
+
+    def run(what, rotations, fn):
+        torch.cuda.synchronize()
+        BR.blind_rotate_cuda.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launched = BR.blind_rotate_cuda.launches
+        log(f"{what} at batch {BATCH}: {dt * 1e3:.1f} ms (host clock), "
+            f"{launched} blind-rotation launches {tag}")
+        if launched != rotations:
+            raise AssertionError(f"{what}: {launched} kernel launches, "
+                                 f"want {rotations}")
+        return out, dt
+
+    def decrypt_errors(what, ct, want) -> None:
+        errors = int(np.sum(T.decrypt_bits(ct, sk) != np.asarray(want)))
+        log(f"{what} at batch {BATCH}: decrypt errors {errors}")
+        if errors:
+            raise AssertionError(f"{what}: {errors} decrypt errors")
+
+    spawn = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(WORKERS, mp_context=spawn,
+                             initializer=_pool_init, initargs=(ek,)) as pool:
+        gold = {
+            "lvl1 nand": [pool.submit(_g_gate, 1, "nand", ha1[r], hb1[r])
+                          for r in GOLDEN_ROWS],
+            "mux_lvl0": [pool.submit(_g_mux, hc0[r], ha0[r], hb0[r])
+                         for r in GOLDEN_ROWS],
+            "gate_chain": [pool.submit(_g_chain, MIXED, ha0[r], hb0[r])
+                           for r in GOLDEN_ROWS],
+            "gate_rows": [pool.submit(_g_gate, 0, per_row[r], ha0[r],
+                                      hb0[r]) for r in GOLDEN_ROWS],
+            "pbs_many": [pool.submit(_g_pbs_many, ha0[r], tv, 2, 1)
+                         for r in GOLDEN_ROWS],
+            "b2t_refresh": [pool.submit(_g_b2t_refresh, ha0[r])
+                            for r in GOLDEN_ROWS],
+        }
+        # the lvl1 key switch reads the one (sample-extract order) KSK
+        # through a column gather: its cost, against no gather
+        ksk, perm = ctx.keys.ksk_limbs_sei, ctx.keys.sei_perm
+        _, ks_ms = cuda_ms(lambda: key_switch(a1.data, ksk, p, perm=perm), 5)
+        _, plain_ms = cuda_ms(lambda: key_switch(a1.data, ksk, p), 5)
+        log(f"lvl1 key switch at batch {BATCH}: {ks_ms:.3f} ms with the "
+            f"sei_perm gather, {plain_ms:.3f} ms without (CUDA events) {tag}")
+        outs = {}
+        for what, rot, fn, want in (
+                ("lvl1 nand", 1, lambda: ctx.nand(a1, b1),
+                 1 - (bits0 & bits1)),
+                ("mux_lvl0", 2, lambda: ctx.mux(c0, a0, b0),
+                 np.where(bitsc == 1, bits0, bits1))):
+            out, dt = run(what, rot, fn)
+            _, dt2 = run(what, rot, fn)
+            decrypt_errors(what, out, want)
+            outs[what] = out
+            log(f"{what}: {BATCH / statistics.median((dt, dt2)):.2f} gates/s "
+                f"(reps {dt * 1e3:.1f}, {dt2 * 1e3:.1f} ms per batch) {tag}")
+        chain, _ = run("gate_chain", len(MIXED),
+                       lambda: ctx.gate_chain(MIXED, a0, b0))
+        cur, want = a0, bits0
+        for nm in MIXED:
+            cur = ctx.gate(nm, cur, b0)
+            want = np.array([G.PLAIN_GATES[nm](x, y)
+                             for x, y in zip(want, bits1)])
+        if not torch.equal(chain.data, cur.data):
+            raise AssertionError("gate_chain differs from its gate() calls")
+        log(f"gate_chain {list(MIXED)}: equal to the {len(MIXED)} separate "
+            f"gate() calls")
+        decrypt_errors("gate_chain", chain, want)
+        consts = B.encode_gate_consts_rows(names16, p.lvl0.mu, DEV)
+        mixed, _ = run("gate_rows", 1, lambda: ctx.gate_rows(consts, a0, b0))
+        decrypt_errors("gate_rows (ten gates, gate-major)", mixed,
+                       [G.PLAIN_GATES[nm](x, y)
+                        for nm, x, y in zip(per_row, bits0, bits1)])
+        many, _ = run("pbs_many", 1, lambda: B.pbs_many(
+            a0.data, from_u32(tv, DEV), 2, ctx.keys, p, theta=1))
+        decrypt_errors("pbs_many J=2 theta=1 (bit, not bit)",
+                       T.Ctxt(many.reshape(2 * BATCH, -1), 0),
+                       np.concatenate([bits0, 1 - bits0]))
+        tr, _ = run("bootstrap_tlwe2trlwe", 1,
+                    lambda: ctx.bootstrap_tlwe2trlwe(a0))
+        via, _ = run("pbs_tlwe2trlwe", 1, lambda: ctx.pbs_tlwe2trlwe(
+            a0, np.full(lp.n, lp.mu, dtype=np.uint32)))
+        if not torch.equal(tr.data, via.data):
+            raise AssertionError("pbs_tlwe2trlwe(constant mu) differs from "
+                                 "bootstrap_tlwe2trlwe")
+        log(f"pbs_tlwe2trlwe with the constant-mu test vector: equal to "
+            f"bootstrap_tlwe2trlwe at batch {BATCH}")
+        rf, _ = run("refresh", 1, lambda: ctx.refresh(tr))
+        ext, _ = run("sample_extract_and_keyswitch", 0,
+                     lambda: ctx.sample_extract_and_keyswitch(rf))
+        decrypt_errors("refresh -> sample_extract_and_keyswitch", ext, bits0)
+
+        got = {"lvl1 nand": to_u32(outs["lvl1 nand"].data),
+               "mux_lvl0": to_u32(outs["mux_lvl0"].data),
+               "gate_chain": to_u32(chain.data),
+               "gate_rows": to_u32(mixed.data),
+               "pbs_many": to_u32(many).transpose(1, 0, 2),
+               "b2t_refresh": list(zip(to_u32(tr.data), to_u32(rf.data),
+                                       to_u32(ext.data)))}
+        t0 = time.perf_counter()
+        for what, futures in gold.items():
+            for r, fut in zip(GOLDEN_ROWS, futures):
+                want = fut.result()
+                mine = got[what][r]
+                if isinstance(want, tuple):
+                    equal = all(np.array_equal(x, y)
+                                for x, y in zip(mine, want))
+                else:
+                    equal = np.array_equal(mine, want)
+                if not equal:
+                    raise AssertionError(f"{what} row {r} disagrees with "
+                                         f"golden")
+        log(f"full width vs golden on rows {list(GOLDEN_ROWS)}: "
+            f"{', '.join(gold)} equal as uint32 (waited "
+            f"{time.perf_counter() - t0:.1f} s for the workers)")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -101,7 +433,8 @@ def main() -> int:
     log(f"build: {build_s:.3f} s {tag} ({_build.build_dir()})")
     ptxas = (_build.build_dir() / "build.log").read_text().splitlines()
     for line in ptxas:
-        if "registers" in line or "spill" in line:
+        if "entry function" in line or "registers" in line \
+                or "spill" in line:
             log("  " + line.strip())
 
     # 3. kernel vs plain version at five parameter sets, 8 rows
@@ -182,13 +515,20 @@ def main() -> int:
         raise AssertionError("kernel disagrees at the main path's shape")
     max_err = max(max_err, err)
 
+    # 7. the tensor-core probe; 8. and 9. the bootstrapping paths
+    probe = phase_probe(info, tag)
+    phase_tiny_paths()
+    phase_full_width(ctx, sk, ek, tag)
+
     for mod in ("jax", "cufhe_tpu"):
         if mod in sys.modules:
             raise AssertionError(f"{mod} was imported")
-    log(json.dumps({"kernels": [{
-        "name": "blind_rotate", "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES, "launches": launches, "max_abs_err": max_err,
-        "ms": ms, "plain_ms": plain_ms}]}))
+    log(json.dumps({"kernels": [
+        {"name": "blind_rotate", "route": "cuda", "source": SOURCE,
+         "replaces": REPLACES, "launches": launches, "max_abs_err": max_err,
+         "ms": ms, "plain_ms": plain_ms},
+        {"name": "mxu_peak", "route": "cuda", "source": PROBE_SOURCE,
+         "replaces": PROBE_REPLACES, **probe}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

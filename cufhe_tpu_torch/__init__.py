@@ -10,17 +10,20 @@ Layers:
   golden, params, rng — client side, presets, CSPRNG (NumPy)
   torus   — int32-held torus arithmetic (logical shift, exact int8 GEMM)
   ops     — poly, key switch, key preparation, blind rotation (plain PyTorch
-            and the CUDA kernel of csrc/), the lvl0 gate
+            and the CUDA kernel of csrc/), gates at both levels, mux, CMUX,
+            refresh, programmable and multi-output bootstrapping
   models  — Context and the gate API
+  benchmarks — the tensor-core probe (plain PyTorch and the CUDA kernel
+            of csrc/mxu_peak.cu)
 """
-from .models import Context, Ctxt, decrypt_bits, encrypt_bits
+from .models import Context, Ctxt, TrlweCtxt, decrypt_bits, encrypt_bits
 from .params import (CGGI19, CONCRETE, DEFAULT, PALLAS_BG10, PALLAS_BG10_KAR,
                      PALLAS_KAR, PALLAS_TINY, PALLAS_TINY_K2, PRESETS,
                      RADIX4_2048, TFHEPP_128, TFHEPP_128_BG8, TFHEPP_80, TINY,
                      TINY_K2, TINY_Q, GateParams)
 
-__all__ = ["Context", "Ctxt", "decrypt_bits", "encrypt_bits", "GateParams",
-           "PRESETS", "DEFAULT", "TFHEPP_128", "TFHEPP_128_BG8", "TFHEPP_80",
-           "CGGI19", "CONCRETE", "RADIX4_2048", "TINY", "TINY_Q", "TINY_K2",
-           "PALLAS_TINY", "PALLAS_TINY_K2", "PALLAS_BG10", "PALLAS_KAR",
-           "PALLAS_BG10_KAR"]
+__all__ = ["Context", "Ctxt", "TrlweCtxt", "decrypt_bits", "encrypt_bits",
+           "GateParams", "PRESETS", "DEFAULT", "TFHEPP_128", "TFHEPP_128_BG8",
+           "TFHEPP_80", "CGGI19", "CONCRETE", "RADIX4_2048", "TINY", "TINY_Q",
+           "TINY_K2", "PALLAS_TINY", "PALLAS_TINY_K2", "PALLAS_BG10",
+           "PALLAS_KAR", "PALLAS_BG10_KAR"]

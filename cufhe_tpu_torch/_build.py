@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (csrc/*.cu).
 
-The sources are compiled with nvcc for sm_90a into one shared library with a
-plain C interface, loaded with ctypes. The build happens at first use, into
+Each source is compiled with nvcc for sm_90a by its own process, all started
+together, and the objects are linked into one shared library with a plain C
+interface, loaded with ctypes. The build happens at first use, into
 _build/<hash of sources and flags>/ beside this file, and is reused while
 the sources are unchanged. Without nvcc, or when the build fails, load()
 raises: there is no fallback.
@@ -20,8 +21,7 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 LIB_NAME = "libcufhe_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+              "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib = None
 
@@ -61,14 +61,34 @@ def build() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
+    tag = os.getpid()
+    nvcc = _nvcc()
+    jobs = []
+    for src in _sources():
+        obj = out_dir / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        text = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + text)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} ({proc.returncode}):\n{text}")
+    tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link ({proc.returncode}):\n"
+                          f"{proc.stdout}{proc.stderr}")
+    (out_dir / "build.log").write_text("".join(log))
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, lib)           # atomic: concurrent builds agree
     return lib
 
@@ -82,6 +102,10 @@ def load() -> ctypes.CDLL:
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
             + [ctypes.c_uint, ctypes.c_void_p])
         lib.cufhe_blind_rotate.restype = ctypes.c_int
+        lib.cufhe_mxu_peak.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+            + [ctypes.c_void_p])
+        lib.cufhe_mxu_peak.restype = ctypes.c_int
         lib.cufhe_error_string.argtypes = [ctypes.c_int]
         lib.cufhe_error_string.restype = ctypes.c_char_p
         _lib = lib

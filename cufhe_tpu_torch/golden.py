@@ -1,10 +1,12 @@
-"""The port's NumPy client side and its gate oracle.
+"""The port's NumPy client side and its oracle.
 
-A copy of the lvl0-gate part of cufhe_tpu/golden.py, so that the port never
-imports the JAX package: secret and evaluation key generation, batched
-encryption and decryption of bits, and the plain NumPy lvl0 gate
-(gate_lvl0) that the device path is checked against. With the same seeds
-and parameters every function here returns exactly what its namesake in
+A copy of cufhe_tpu/golden.py's client side and of the oracles the port's
+paths are checked against, so that the port never imports the JAX
+package: secret and evaluation key generation, batched encryption and
+decryption of bits at both levels, TRLWE/TRGSW encryption, and the plain
+NumPy gates (both levels, mux), CMUX, refresh and programmable
+bootstrapping (single and multi-output). With the same seeds and
+parameters every function here returns exactly what its namesake in
 cufhe_tpu/golden.py returns (tests/test_torch_golden.py).
 
 All torus arithmetic is uint32 with wrap-around; signed intermediate work
@@ -74,14 +76,17 @@ def tlwe_encrypt_batch(mus: np.ndarray, key: np.ndarray, alpha: float,
 
 
 def encrypt_bit_batch(bits: np.ndarray, sk: SecretKey,
-                      rng: Optional[RngLike] = None) -> np.ndarray:
-    """Encrypt a bit array as +-mu at lvl0 in one batch draw:
-    [B, n0+1] uint32."""
+                      rng: Optional[RngLike] = None,
+                      level: int = 0) -> np.ndarray:
+    """Encrypt a bit array as +-mu in one batch draw: [B, d+1] uint32,
+    d = n0 at lvl0 and k*N at lvl1."""
     rng = resolve_rng(rng=rng)
-    lp = sk.params.lvl0
+    p = sk.params
+    lp = p.lvl0 if level == 0 else p.lvl1
+    key = sk.lvl0 if level == 0 else sk.lvl1.reshape(-1)
     bits = np.asarray(bits).ravel()
     mus = np.where(bits == 1, U32(lp.mu), U32((-lp.mu) % _MOD))
-    return tlwe_encrypt_batch(mus, sk.lvl0, lp.alpha, rng)
+    return tlwe_encrypt_batch(mus, key, lp.alpha, rng)
 
 
 def decrypt_bit_batch(cts: np.ndarray, sk: SecretKey,
@@ -128,6 +133,52 @@ def trlwe_encrypt_zero_batch(m: int, p: TrlweParams, key: np.ndarray,
         b += _binary_key_polymul_batch(a[:, j], key[j])
     b = _u32(b + _gaussian_torus(rng, p.alpha, (m, N)).astype(np.int64))
     return np.concatenate([a, b[:, None, :].astype(np.uint32)], axis=1)
+
+
+def trlwe_encrypt_zero(p: TrlweParams, key: np.ndarray,
+                       rng: Optional[RngLike] = None) -> np.ndarray:
+    """TRLWE encryption of 0: [k+1, N] with b = sum_j a_j*s_j + e."""
+    rng = resolve_rng(rng=rng)
+    N, k = p.n, p.k
+    a = rng.integers(0, _MOD, size=(k, N), dtype=np.uint64).astype(np.uint32)
+    b = np.zeros(N, dtype=np.int64)
+    for j in range(k):
+        b += negacyclic_polymul(a[j].astype(np.int64), key[j].astype(np.int64))
+    b = _u32(b + _gaussian_torus(rng, p.alpha, N).astype(np.int64))
+    return np.concatenate([a, b[None, :]], axis=0)
+
+
+def trlwe_encrypt_bits(bits: np.ndarray, p: TrlweParams, key: np.ndarray,
+                       rng: Optional[RngLike] = None) -> np.ndarray:
+    """TRLWE encryption of N bits packed into the slots as +-mu."""
+    ct = trlwe_encrypt_zero(p, key, rng)
+    msg = np.where(np.asarray(bits) == 1, p.mu, (-p.mu) % _MOD)
+    ct[p.k] = _u32(ct[p.k].astype(np.int64) + msg.astype(np.int64))
+    return ct
+
+
+def trlwe_phase(ct: np.ndarray, p: TrlweParams, key: np.ndarray) -> np.ndarray:
+    acc = ct[p.k].astype(np.int64).copy()
+    for j in range(p.k):
+        acc -= negacyclic_polymul(ct[j].astype(np.int64),
+                                  key[j].astype(np.int64))
+    return _u32(acc)
+
+
+def trgsw_encrypt(plain: int, p: TrlweParams, key: np.ndarray,
+                  rng: Optional[RngLike] = None) -> np.ndarray:
+    """TRGSW of a small integer: [(k+1)l, k+1, N]. Row j*l+d adds
+    plain * 2^(32-(d+1)Bgbit) on component j (the gadget), the convention
+    of the bootstrapping key."""
+    rng = resolve_rng(rng=rng)
+    rows = []
+    for j in range(p.k + 1):
+        for d in range(p.l):
+            row = trlwe_encrypt_zero(p, key, rng)
+            h = U32((int(plain) * (1 << (32 - (d + 1) * p.Bgbit))) % _MOD)
+            row[j, 0] = U32((int(row[j, 0]) + int(h)) % _MOD)
+            rows.append(row)
+    return np.stack(rows, axis=0)
 
 
 @dataclasses.dataclass
@@ -182,7 +233,7 @@ def make_eval_key(sk: SecretKey, seed: Optional[int] = None) -> EvalKey:
 
 
 # ---------------------------------------------------------------------------
-# The lvl0 gate, one ciphertext at a time
+# Blind rotation, extraction and key switch, one ciphertext at a time
 # ---------------------------------------------------------------------------
 
 def negacyclic_polymul(a: np.ndarray, b: np.ndarray) -> np.ndarray:
@@ -278,12 +329,95 @@ def blind_rotate(tlwe: np.ndarray, mu: int, ek: EvalKey,
 
     bar = 2 * lp.n - int(mod_switch_from_torus(b_in, lp.nbit))
     acc = rotated_test_vector(lp, bar, mu)
+    return _blind_rotate_loop(acc, a_in, ek)
+
+
+def _blind_rotate_loop(acc: np.ndarray, a_in: np.ndarray,
+                       ek: EvalKey) -> np.ndarray:
+    """The n0-step CMUX loop from an explicit initial accumulator."""
+    p = ek.params
+    lp = p.lvl1
     roundoffset = 1 << (32 - 2 - lp.nbit)
-    for i in range(n0):
+    for i in range(p.lvl0.dim):
         a_bar = int(mod_switch_from_torus(_u32(int(a_in[i]) + roundoffset),
                                           lp.nbit))
         acc = external_product_accumulate(acc, a_bar, ek.bk[i], lp)
     return acc
+
+
+def blind_rotate_tv(tlwe: np.ndarray, tv: np.ndarray,
+                    ek: EvalKey) -> np.ndarray:
+    """Blind rotation with a custom test polynomial tv [N] uint32, the core
+    of programmable bootstrapping. The constant-mu gate test vector is the
+    special case tv = mu * 1."""
+    p = ek.params
+    lp = p.lvl1
+    n0 = p.lvl0.dim
+    bar = 2 * lp.n - int(mod_switch_from_torus(tlwe[n0], lp.nbit))
+    acc = np.zeros((lp.k + 1, lp.n), dtype=np.uint32)
+    acc[lp.k] = _rotate_by_xai(np.asarray(tv, dtype=np.uint32),
+                               bar & (2 * lp.n - 1), lp)
+    return _blind_rotate_loop(acc, tlwe[:n0], ek)
+
+
+def programmable_bootstrap(tlwe0: np.ndarray, tv: np.ndarray,
+                           ek: EvalKey) -> np.ndarray:
+    """Custom-test-vector bootstrap -> extract -> key switch (lvl0 out).
+    The output encrypts tv[w] (or -tv[w - N]) for mod-switched phase
+    window w."""
+    acc = blind_rotate_tv(tlwe0, tv, ek)
+    return key_switch(sample_extract_index0(acc, ek.params.lvl1), ek)
+
+
+def mod_switch_round(phase, nbit: int, theta: int) -> int:
+    """Mod switch rounded to a multiple of 2^theta windows (PBSmanyLUT):
+    accumulator coefficients j = 0 .. 2^theta-1 then carry tv[w+j], that
+    many independent LUT outputs of one rotation. theta = 0 is the
+    rounded a-coefficient switch of the plain blind rotation."""
+    sh = 32 - 1 - nbit + theta
+    return (((int(phase) + (1 << (sh - 1))) % _MOD) >> sh) << theta
+
+
+def blind_rotate_tv_many(tlwe: np.ndarray, tv: np.ndarray, ek: EvalKey,
+                         theta: int) -> np.ndarray:
+    """Blind rotation with a custom test polynomial and the PBSmanyLUT mod
+    switch (every switched value, b's window included, rounded to a
+    multiple of 2^theta windows)."""
+    p = ek.params
+    lp = p.lvl1
+    n0 = p.lvl0.dim
+    bar = (2 * lp.n - mod_switch_round(tlwe[n0], lp.nbit, theta)) \
+        % (2 * lp.n)
+    acc = np.zeros((lp.k + 1, lp.n), dtype=np.uint32)
+    acc[lp.k] = _rotate_by_xai(np.asarray(tv, dtype=np.uint32), bar, lp)
+    for i in range(n0):
+        a_bar = mod_switch_round(tlwe[i], lp.nbit, theta)
+        acc = external_product_accumulate(acc, a_bar, ek.bk[i], lp)
+    return acc
+
+
+def sample_extract_index(trlwe: np.ndarray, p: TrlweParams,
+                         j: int) -> np.ndarray:
+    """Sample extraction of coefficient j: rotate by X^{-j} (= X^{2N-j})
+    and extract index 0."""
+    rot = np.stack([_rotate_by_xai(trlwe[c], (2 * p.n - j) % (2 * p.n), p)
+                    for c in range(p.k + 1)])
+    return sample_extract_index0(rot, p)
+
+
+def pbs_many(tlwe0: np.ndarray, tv: np.ndarray, J: int, ek: EvalKey,
+             theta: Optional[int] = None) -> np.ndarray:
+    """Multi-output programmable bootstrap (PBSmanyLUT): one blind rotation
+    with the mod switch rounded to 2^theta-aligned windows, then J
+    extractions and key switches of coefficients 0 .. J-1. Returns
+    [J, n0+1]: output j encrypts tv[w + j]."""
+    if theta is None:
+        theta = (J - 1).bit_length()
+    assert J <= 1 << theta
+    acc = blind_rotate_tv_many(tlwe0, tv, ek, theta)
+    return np.stack([key_switch(
+        sample_extract_index(acc, ek.params.lvl1, j), ek)
+        for j in range(J)])
 
 
 def sample_extract_index0(trlwe: np.ndarray, p: TrlweParams) -> np.ndarray:
@@ -300,19 +434,30 @@ def sample_extract_index0(trlwe: np.ndarray, p: TrlweParams) -> np.ndarray:
     return out
 
 
-def key_switch(tlwe1: np.ndarray, ek: EvalKey) -> np.ndarray:
+def key_switch(tlwe1: np.ndarray, ek: EvalKey,
+               pre: Optional[tuple] = None) -> np.ndarray:
     """Identity key switch of a lvl1-domain TLWE [k1*N + 1] to lvl0
-    [n0+1]."""
+    [n0+1]; with `pre` = (ca, cb, offset, other) the gate linear
+    combination is fused in (lvl1-input gates)."""
     p = ek.params
     kp = p.ks
     d1 = p.lvl1.k * p.lvl1.n
     n0 = p.lvl0.dim
+    if pre is not None:
+        ca, cb, offset, other = pre
+        comb = _u32(np.int64(ca) * tlwe1.astype(np.int64)
+                    + np.int64(cb) * other.astype(np.int64))
+        b_in = _u32(int(comb[d1]) + offset)
+        a_in = comb[:d1]
+    else:
+        b_in = tlwe1[d1]
+        a_in = tlwe1[:d1]
     res = np.zeros(n0 + 1, dtype=np.int64)
-    res[n0] = int(tlwe1[d1])  # domain and target are both 32-bit torus
+    res[n0] = int(b_in)  # domain and target are both 32-bit torus
     mask = (1 << kp.basebit) - 1
     halfbase = 1 << (kp.basebit - 1)
     off = (kp.decomp_offset + kp.roundoffset) % _MOD
-    tmp = _u32(tlwe1[:d1].astype(np.int64) + off)
+    tmp = _u32(a_in.astype(np.int64) + off)
     for j in range(d1):
         for dig in range(kp.t):
             val = int((int(tmp[j]) >> (32 - (dig + 1) * kp.basebit)) & mask) \
@@ -323,6 +468,10 @@ def key_switch(tlwe1: np.ndarray, ek: EvalKey) -> np.ndarray:
                 res += ek.ksk[j, dig, -val - 1].astype(np.int64)
     return _u32(res)
 
+
+# ---------------------------------------------------------------------------
+# Gates
+# ---------------------------------------------------------------------------
 
 #: gate -> (casign, cbsign, offset-multiplier-of-mu)
 GATE_CONSTANTS = {
@@ -366,3 +515,105 @@ def gate_lvl0(name: str, in0: np.ndarray, in1: np.ndarray,
     offset = (om * p.lvl0.mu) % _MOD
     acc = blind_rotate(in0, p.lvl1.mu, ek, pre=(ca, cb, offset, in1))
     return key_switch(sample_extract_index0(acc, p.lvl1), ek)
+
+
+def gate_lvl1(name: str, in0: np.ndarray, in1: np.ndarray,
+              ek: EvalKey) -> np.ndarray:
+    """Two-input gate on lvl1 ciphertexts [k*N+1]: key switch with the
+    pre-add fused, blind rotation, sample extraction (lvl1 out)."""
+    p = ek.params
+    ca, cb, om = GATE_CONSTANTS[name]
+    offset = (om * p.lvl1.mu) % _MOD
+    tlwe0 = key_switch(in0, ek, pre=(ca, cb, offset, in1))
+    acc = blind_rotate(tlwe0, p.lvl1.mu, ek)
+    return sample_extract_index0(acc, p.lvl1)
+
+
+def not_gate(ct: np.ndarray) -> np.ndarray:
+    """Negation only, no bootstrap."""
+    return _u32(-ct.astype(np.int64))
+
+
+def copy_gate(ct: np.ndarray) -> np.ndarray:
+    return ct.copy()
+
+
+def mux_lvl0(inc: np.ndarray, in1: np.ndarray, in0: np.ndarray,
+             ek: EvalKey, negate: bool = False) -> np.ndarray:
+    """Mux on lvl0 inputs: the AND(c, in1) and ANDNY(c, in0) rotations,
+    added, b += mu (negated for nmux), extract, key switch."""
+    p = ek.params
+    mu0, mu1 = p.lvl0.mu, p.lvl1.mu
+    acc1 = blind_rotate(inc, mu1, ek, pre=(1, 1, (-mu0) % _MOD, in1))
+    acc0 = blind_rotate(inc, mu1, ek, pre=(-1, 1, (-mu0) % _MOD, in0))
+    acc = _u32(acc1.astype(np.int64) + acc0.astype(np.int64))
+    if negate:
+        acc = _u32(-acc.astype(np.int64))
+        acc[p.lvl1.k, 0] = _u32(int(acc[p.lvl1.k, 0]) - mu1)
+    else:
+        acc[p.lvl1.k, 0] = _u32(int(acc[p.lvl1.k, 0]) + mu1)
+    tlwe1 = sample_extract_index0(acc, p.lvl1)
+    return key_switch(tlwe1, ek)
+
+
+def mux_lvl1(inc: np.ndarray, in1: np.ndarray, in0: np.ndarray,
+             ek: EvalKey, negate: bool = False) -> np.ndarray:
+    """Mux on lvl1 inputs: two key switches and rotations, the TRLWEs
+    added, extract, b +- mu."""
+    p = ek.params
+    mu1 = p.lvl1.mu
+    t1 = key_switch(inc, ek, pre=(1, 1, (-mu1) % _MOD, in1))
+    acc1 = blind_rotate(t1, mu1, ek)
+    t0 = key_switch(inc, ek, pre=(-1, 1, (-mu1) % _MOD, in0))
+    acc0 = blind_rotate(t0, mu1, ek)
+    acc = _u32(acc1.astype(np.int64) + acc0.astype(np.int64))
+    out = sample_extract_index0(acc, p.lvl1)
+    d1 = p.lvl1.k * p.lvl1.n
+    if negate:
+        out = _u32(-out.astype(np.int64))
+        out[d1] = _u32(int(out[d1]) - mu1)
+    else:
+        out[d1] = _u32(int(out[d1]) + mu1)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# CMUX on user TRGSWs, refresh, TLWE -> TRLWE
+# ---------------------------------------------------------------------------
+
+def cmux(trgsw: np.ndarray, c1: np.ndarray, c0: np.ndarray,
+         p: TrlweParams) -> np.ndarray:
+    """res = c0 + trgsw (external product) (c1 - c0): homomorphic select."""
+    mask = U32((1 << p.Bgbit) - 1)
+    half = 1 << (p.Bgbit - 1)
+    off = U32((p.decomp_offset + p.decomp_roundoffset) % _MOD)
+    diff = _u32(c1.astype(np.int64) - c0.astype(np.int64) + int(off))
+    upd = np.zeros((p.k + 1, p.n), dtype=np.int64)
+    for j in range(p.k + 1):
+        for d in range(p.l):
+            sh = U32(32 - (d + 1) * p.Bgbit)
+            dec = ((diff[j] >> sh) & mask).astype(np.int64) - half
+            row = trgsw[j * p.l + d]
+            for o in range(p.k + 1):
+                upd[o] += negacyclic_polymul(dec, row[o].astype(np.int64))
+    return _u32(c0.astype(np.int64) + upd)
+
+
+def refresh(trlwe: np.ndarray, ek: EvalKey) -> np.ndarray:
+    """TRLWE noise refresh: extract, key switch, blind rotate back to a
+    TRLWE. The initial rotation is taken from the key-switched sample."""
+    p = ek.params
+    tlwe1 = sample_extract_index0(trlwe, p.lvl1)
+    tlwe0 = key_switch(tlwe1, ek)
+    return blind_rotate(tlwe0, p.lvl1.mu, ek)
+
+
+def bootstrap_tlwe2trlwe(tlwe0: np.ndarray, mu: int,
+                         ek: EvalKey) -> np.ndarray:
+    """Gate bootstrapping of a lvl0 TLWE to a TRLWE (no extraction)."""
+    return blind_rotate(tlwe0, mu, ek)
+
+
+def sei_and_ks(trlwe: np.ndarray, ek: EvalKey) -> np.ndarray:
+    """Sample extraction of coefficient 0 and key switch to lvl0."""
+    return key_switch(sample_extract_index0(trlwe, ek.params.lvl1), ek)

@@ -1,5 +1,5 @@
-from .api import Context, Ctxt, decrypt_bits, encrypt_bits
+from .api import Context, Ctxt, TrlweCtxt, decrypt_bits, encrypt_bits
 from .gates import GATE_CONSTANTS, TWO_INPUT
 
-__all__ = ["Context", "Ctxt", "decrypt_bits", "encrypt_bits",
+__all__ = ["Context", "Ctxt", "TrlweCtxt", "decrypt_bits", "encrypt_bits",
            "GATE_CONSTANTS", "TWO_INPUT"]

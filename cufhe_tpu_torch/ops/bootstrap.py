@@ -1,11 +1,22 @@
-"""Gate bootstrapping at lvl0: the counterpart of the main-path part of
-cufhe_tpu/ops/bootstrap.py, bit-exact to it.
+"""Gate bootstrapping programs: the counterpart of cufhe_tpu/ops/bootstrap.py,
+bit-exact to it.
 
     gate_lvl0 = pre-add -> mod switch + rotated test vector -> n0-step
                 blind rotation -> sample extraction (key-switch input form)
                 -> key switch back to lvl0
+    gate_lvl1 = key switch with the pre-add fused -> blind rotation ->
+                sample extraction (lvl1 out)
+
+and the paths built from the same pieces: mux/nmux (two rotations summed),
+per-row gate constants (gate_rows), custom test vectors (programmable
+bootstrapping), the rounded mod switch of PBSmanyLUT (pbs_many), CMUX on a
+user TRGSW, refresh and the TLWE -> TRLWE bootstrap. Every blind rotation
+goes through ops/blind_rotate.py: the CUDA kernel for CUDA tensors, its
+plain version for CPU tensors.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -14,7 +25,9 @@ from ..torus import i32, srl
 from . import blind_rotate as BR
 from .keys import DeviceKeys
 from .keyswitch import key_switch
-from .poly import batched_test_vector, sample_extract_for_ks
+from .poly import (batched_test_vector, decompose, negacyclic_conv_toeplitz,
+                   rotate_by_xai, sample_extract_for_ks, sample_extract_index0,
+                   split_decomp_digits)
 
 
 def _mod_switch(phase: torch.Tensor, nbit: int) -> torch.Tensor:
@@ -23,11 +36,43 @@ def _mod_switch(phase: torch.Tensor, nbit: int) -> torch.Tensor:
     return srl(phase, 32 - 1 - nbit)
 
 
+def _mod_switch_round(phase: torch.Tensor, nbit: int,
+                      theta: int) -> torch.Tensor:
+    """Mod switch rounded to a multiple of 2^theta windows (PBSmanyLUT;
+    golden.mod_switch_round), in [0, 2N). theta=0 equals the rounded
+    a-coefficient switch _mod_switch(x + roundoffset). The add wraps as
+    uint32 and the shift is logical (srl)."""
+    sh = 32 - 1 - nbit + theta
+    return srl(phase + i32(1 << (sh - 1)), sh) << theta
+
+
 def encode_gate_consts(gate_consts, mu: int) -> tuple[int, int, int]:
     """(ca, cb, om) from golden.GATE_CONSTANTS -> int32 representatives of
     (ca, cb, om*mu) mod 2^32."""
     ca, cb, om = gate_consts
     return i32(ca), i32(cb), i32(om * mu)
+
+
+def encode_gate_consts_rows(names, mu: int, device=None) -> torch.Tensor:
+    """[len(names), 3] int32 per-row constants: row i holds (ca, cb,
+    om*mu) of gate names[i]. Passed as `gate_consts` (tiled to the batch),
+    one call evaluates a mix of the ten two-input gates."""
+    from ..golden import GATE_CONSTANTS
+    rows = [encode_gate_consts(GATE_CONSTANTS[nm], mu) for nm in names]
+    return torch.tensor(rows, dtype=torch.int32,
+                        device=device).reshape(len(rows), 3)
+
+
+def _gate_coeffs(gate_consts, mu: int):
+    """(ca, cb, offset) of a gate: a (ca, cb, om) int tuple from
+    golden.GATE_CONSTANTS, or per-row int32 constants [B, 3] from
+    encode_gate_consts_rows (ca and cb as [B, 1], offset as [B])."""
+    if isinstance(gate_consts, torch.Tensor):
+        if gate_consts.dim() != 2 or gate_consts.shape[1] != 3:
+            raise ValueError(f"per-row gate constants must be [B, 3], got "
+                             f"{tuple(gate_consts.shape)}")
+        return (gate_consts[:, 0:1], gate_consts[:, 1:2], gate_consts[:, 2])
+    return encode_gate_consts(gate_consts, mu)
 
 
 def _pre_add(in0, in1, ca, cb, off, dim):
@@ -45,26 +90,203 @@ def blind_rotate(a: torch.Tensor, b: torch.Tensor, mu: int, keys: DeviceKeys,
     return blind_rotate_acc(acc, a, keys, params)
 
 
-def blind_rotate_acc(acc: torch.Tensor, a: torch.Tensor, keys: DeviceKeys,
-                     params: GateParams) -> torch.Tensor:
-    """The n0-step CMUX loop from an explicit initial accumulator
-    [B, k+1, N]. The rounded mod switch of every mask coefficient is done
-    here, on a's device, as abar [n0, B] int32."""
+def blind_rotate_tv(a: torch.Tensor, b: torch.Tensor, tv: torch.Tensor,
+                    keys: DeviceKeys, params: GateParams,
+                    theta: Optional[int] = None) -> torch.Tensor:
+    """Blind rotation of a custom test polynomial tv ([N] or [B, N] int32):
+    the returned TRLWE's constant slot carries tv at the mod-switched input
+    phase (negacyclic: windows N..2N-1 see -tv). theta=None switches b by
+    truncation, as blind_rotate; an int selects the PBSmanyLUT rounded
+    switch for b and every a coefficient."""
     lp = params.lvl1
-    roundoffset = 1 << (32 - 2 - lp.nbit)
-    abar = _mod_switch(a + roundoffset, lp.nbit).T.contiguous()
-    return BR.blind_rotate(acc, abar, keys.bk_ext, params)
+    B = a.shape[0]
+    if theta is None:
+        bar = 2 * lp.n - _mod_switch(b, lp.nbit)
+    else:
+        bar = 2 * lp.n - _mod_switch_round(b, lp.nbit, theta)
+    acc0 = torch.zeros((B, lp.k + 1, lp.n), dtype=torch.int32,
+                       device=a.device)
+    acc0[:, lp.k, :] = tv
+    # bar == 2N (b = 0) wraps to rotation 0 under the mask
+    acc = rotate_by_xai(acc0, bar & (2 * lp.n - 1), lp)
+    return blind_rotate_acc(acc, a, keys, params, theta=theta)
+
+
+def blind_rotate_acc(acc: torch.Tensor, a: torch.Tensor, keys: DeviceKeys,
+                     params: GateParams,
+                     theta: Optional[int] = None) -> torch.Tensor:
+    """The n0-step CMUX loop from an explicit initial accumulator
+    [B, k+1, N]. The mod switch of every mask coefficient is done here, on
+    a's device, as abar [n0, B] int32: rounded (theta None or 0), or
+    rounded to multiples of 2^theta windows (PBSmanyLUT). The kernel is
+    the same either way."""
+    lp = params.lvl1
+    if theta:
+        abar = _mod_switch_round(a, lp.nbit, theta)
+    else:
+        abar = _mod_switch(a + (1 << (32 - 2 - lp.nbit)), lp.nbit)
+    return BR.blind_rotate(acc, abar.T.contiguous(), keys.bk_ext, params)
+
+
+def _key_switch_lvl1(x: torch.Tensor, keys: DeviceKeys, params: GateParams,
+                     pre=None) -> torch.Tensor:
+    """Key switch of natural-order lvl1 ciphertexts [B, k*N+1] through the
+    one KSK kept (ksk_limbs_sei): the mask columns are gathered by the
+    involution sei_perm after the pre-add."""
+    return key_switch(x, keys.ksk_limbs_sei, params, pre=pre,
+                      perm=keys.sei_perm)
 
 
 def gate_lvl0(gate_consts, in0: torch.Tensor, in1: torch.Tensor,
               keys: DeviceKeys, params: GateParams) -> torch.Tensor:
     """HomGate in br -> iks order: lvl0 inputs [B, n0+1], the pre-add fused
     into the mod switch, blind rotation, extraction, key switch back to
-    lvl0. gate_consts is (ca, cb, om) as in golden.GATE_CONSTANTS."""
-    ca, cb, off = encode_gate_consts(gate_consts, params.lvl0.mu)
+    lvl0. gate_consts is (ca, cb, om) as in golden.GATE_CONSTANTS, or
+    per-row constants [B, 3] (encode_gate_consts_rows)."""
+    ca, cb, off = _gate_coeffs(gate_consts, params.lvl0.mu)
     n0 = params.lvl0.dim
     a, b = _pre_add(in0, in1, ca, cb, off, n0)
     acc = blind_rotate(a, b, params.lvl1.mu, keys, params)
     # the extraction's index reversal lives in the KSK row permutation
     tlwe1 = sample_extract_for_ks(acc, params.lvl1)
     return key_switch(tlwe1, keys.ksk_limbs_sei, params)
+
+
+def gate_lvl1(gate_consts, in0: torch.Tensor, in1: torch.Tensor,
+              keys: DeviceKeys, params: GateParams) -> torch.Tensor:
+    """HomGate in iks -> br order: lvl1 inputs [B, k*N+1], the pre-add
+    fused into the key switch, blind rotation, extraction to lvl1."""
+    ca, cb, off = _gate_coeffs(gate_consts, params.lvl1.mu)
+    n0 = params.lvl0.dim
+    tlwe0 = _key_switch_lvl1(in0, keys, params, pre=(ca, cb, off, in1))
+    acc = blind_rotate(tlwe0[:, :n0], tlwe0[:, n0], params.lvl1.mu, keys,
+                       params)
+    return sample_extract_index0(acc, params.lvl1)
+
+
+def mux_lvl0(inc, in1, in0, keys: DeviceKeys, params: GateParams,
+             negate: bool = False) -> torch.Tensor:
+    """Mux(inc ? in1 : in0) on lvl0 inputs (nmux with negate): the
+    AND(c, in1) and ANDNY(c, in0) rotations summed, b += mu (negated
+    first for nmux), extraction, key switch."""
+    n0 = params.lvl0.dim
+    mu0, mu1 = params.lvl0.mu, params.lvl1.mu
+    a1, b1 = _pre_add(inc, in1, 1, 1, i32(-mu0), n0)
+    acc1 = blind_rotate(a1, b1, mu1, keys, params)
+    a0, b0 = _pre_add(inc, in0, -1, 1, i32(-mu0), n0)
+    acc0 = blind_rotate(a0, b0, mu1, keys, params)
+    acc = acc1 + acc0
+    if negate:
+        acc = -acc
+    acc[:, params.lvl1.k, 0] += i32(-mu1 if negate else mu1)
+    tlwe1 = sample_extract_for_ks(acc, params.lvl1)
+    return key_switch(tlwe1, keys.ksk_limbs_sei, params)
+
+
+def mux_lvl1(inc, in1, in0, keys: DeviceKeys, params: GateParams,
+             negate: bool = False) -> torch.Tensor:
+    """Mux on lvl1 inputs: two key switches with the pre-add fused, two
+    rotations, the TRLWEs summed, extraction, b +- mu."""
+    n0 = params.lvl0.dim
+    d1 = params.lvl1.k * params.lvl1.n
+    mu1 = params.lvl1.mu
+    t1 = _key_switch_lvl1(inc, keys, params, pre=(1, 1, -mu1, in1))
+    acc1 = blind_rotate(t1[:, :n0], t1[:, n0], mu1, keys, params)
+    t0 = _key_switch_lvl1(inc, keys, params, pre=(-1, 1, -mu1, in0))
+    acc0 = blind_rotate(t0[:, :n0], t0[:, n0], mu1, keys, params)
+    out = sample_extract_index0(acc1 + acc0, params.lvl1)
+    if negate:
+        out = -out
+    out[:, d1] += i32(-mu1 if negate else mu1)
+    return out
+
+
+def not_gate(ct: torch.Tensor) -> torch.Tensor:
+    """Negation, no bootstrap."""
+    return -ct
+
+
+def copy_gate(ct: torch.Tensor) -> torch.Tensor:
+    return ct
+
+
+def cmux(trgsw_limbs: torch.Tensor, c1: torch.Tensor, c0: torch.Tensor,
+         params: GateParams) -> torch.Tensor:
+    """c0 + trgsw (external product) (c1 - c0), batched over TRLWEs
+    [B, k+1, N]: one exact negacyclic product in plain PyTorch
+    (poly.negacyclic_conv_toeplitz), as the JAX package leaves this single
+    product to XLA. trgsw_limbs comes from keys.prepare_trgsw."""
+    lp = params.lvl1
+    dec = decompose(c1 - c0 + i32(lp.decomp_offset + lp.decomp_roundoffset),
+                    lp)
+    parts, bits = split_decomp_digits(dec, lp.Bgbit)
+    out = c0
+    for dl, d8 in enumerate(parts):
+        out = out + (negacyclic_conv_toeplitz(d8, trgsw_limbs, lp.k)
+                     << (bits * dl))
+    return out
+
+
+def refresh(trlwe: torch.Tensor, keys: DeviceKeys,
+            params: GateParams) -> torch.Tensor:
+    """TRLWE -> TRLWE noise refresh: extraction, key switch, blind rotation
+    from the key-switched sample (golden.refresh)."""
+    return bootstrap_tlwe2trlwe(sei_and_ks(trlwe, keys, params),
+                                params.lvl1.mu, keys, params)
+
+
+def bootstrap_tlwe2trlwe(tlwe0: torch.Tensor, mu: int, keys: DeviceKeys,
+                         params: GateParams) -> torch.Tensor:
+    """Gate bootstrapping of lvl0 TLWEs [B, n0+1] to TRLWEs [B, k+1, N]."""
+    n0 = params.lvl0.dim
+    return blind_rotate(tlwe0[:, :n0], tlwe0[:, n0], mu, keys, params)
+
+
+def sei_and_ks(trlwe: torch.Tensor, keys: DeviceKeys,
+               params: GateParams) -> torch.Tensor:
+    """Sample extraction of coefficient 0 and key switch to lvl0."""
+    return key_switch(sample_extract_for_ks(trlwe, params.lvl1),
+                      keys.ksk_limbs_sei, params)
+
+
+def pbs_tlwe2trlwe(tlwe0: torch.Tensor, tv: torch.Tensor, keys: DeviceKeys,
+                   params: GateParams) -> torch.Tensor:
+    """Programmable bootstrap, TLWE -> TRLWE: blind-rotate a custom test
+    polynomial tv ([N] or [B, N] int32) by the input phase."""
+    n0 = params.lvl0.dim
+    return blind_rotate_tv(tlwe0[:, :n0], tlwe0[:, n0], tv, keys, params)
+
+
+def programmable_bootstrap(tlwe0: torch.Tensor, tv: torch.Tensor,
+                           keys: DeviceKeys,
+                           params: GateParams) -> torch.Tensor:
+    """Custom-test-vector blind rotation, extraction, key switch to lvl0.
+    The output encrypts tv[w] (or -tv[w - N]) for the mod-switched phase
+    window w of the input."""
+    return sei_and_ks(pbs_tlwe2trlwe(tlwe0, tv, keys, params), keys, params)
+
+
+def pbs_many(tlwe0: torch.Tensor, tv: torch.Tensor, J: int, keys: DeviceKeys,
+             params: GateParams, theta: Optional[int] = None) -> torch.Tensor:
+    """Multi-output programmable bootstrap (PBSmanyLUT): one blind rotation
+    with the mod switch rounded to 2^theta windows, so accumulator
+    coefficient j is tv[w + j]; J negacyclic rotations by X^-j share one
+    batched extraction and key switch. tlwe0 [B, n0+1], tv [N] or [B, N].
+    Returns [J, B, n0+1]: output j encrypts LUT j of the input."""
+    if theta is None:
+        theta = (J - 1).bit_length()
+    if J > 1 << theta:
+        raise ValueError(f"J = {J} outputs need theta >= "
+                         f"{(J - 1).bit_length()}, got {theta}")
+    n0 = params.lvl0.dim
+    lp = params.lvl1
+    acc = blind_rotate_tv(tlwe0[:, :n0], tlwe0[:, n0], tv, keys, params,
+                          theta=theta)
+    B = acc.shape[0]
+    rots = [acc] + [rotate_by_xai(acc, torch.full((B,), 2 * lp.n - j,
+                                                  dtype=torch.int32,
+                                                  device=acc.device), lp)
+                    for j in range(1, J)]
+    out = key_switch(sample_extract_for_ks(torch.cat(rots), lp),
+                     keys.ksk_limbs_sei, params)
+    return out.reshape(J, B, n0 + 1)

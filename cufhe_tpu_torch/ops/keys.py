@@ -1,9 +1,8 @@
-"""Device key preparation: the counterpart of cufhe_tpu/ops/keys.py for the
-lvl0 gate path.
+"""Device key preparation: the counterpart of cufhe_tpu/ops/keys.py.
 
 The NumPy evaluation key (golden.EvalKey: bk [n0, (k+1)l, k+1, N] and ksk
 [d1, t, numbase, n0+1], both uint32) is converted once to signed 8-bit limb
-forms and moved to one device.
+forms and moved to one device; so is a user TRGSW for CMUX (prepare_trgsw).
 """
 from __future__ import annotations
 
@@ -30,24 +29,50 @@ class DeviceKeys:
         the negacyclic reversal j -> (N - j) mod N, so
         key_switch(poly.sample_extract_for_ks(acc)) equals the key switch
         of the true extraction.
+    sei_perm: [k*N] int64, that permutation (sei_perm()). It is an
+        involution, so the one KSK also serves key switches of natural-order
+        inputs (lvl1 ciphertexts): key_switch(x, natural KSK) equals
+        key_switch(x with its first k*N columns gathered by sei_perm,
+        ksk_limbs_sei). No second, natural-order KSK is kept (41.7 MB at
+        tfhepp_128bit).
     """
     bk_ext: torch.Tensor
     ksk_limbs_sei: torch.Tensor
+    sei_perm: torch.Tensor
 
     @property
     def device(self) -> torch.device:
         return self.bk_ext.device
 
 
+def sei_perm(params: GateParams) -> np.ndarray:
+    """The negacyclic index reversal j -> (N - j) mod N within each of the
+    k lvl1 components: [k*N] int64, its own inverse."""
+    lp = params.lvl1
+    perm = np.arange(lp.k * lp.n).reshape(lp.k, lp.n)
+    return np.concatenate([perm[:, :1], perm[:, :0:-1]], axis=1).reshape(-1)
+
+
 def ksk_limbs_sei(ksk: np.ndarray, params: GateParams) -> np.ndarray:
     """KSK [d1, t, numbase, n0+1] uint32 -> [NLIMBS, K, n0+1] int8 in the
     (dig, m, j) row order with the sample-extract permutation."""
-    lp = params.lvl1
     d1, t, nb, cols = ksk.shape
-    perm = np.arange(d1).reshape(lp.k, lp.n)
-    perm = np.concatenate([perm[:, :1], perm[:, :0:-1]], axis=1).reshape(-1)
-    kl = u32_to_signed_limbs(ksk[perm])             # [d1, t, nb, n0+1, L]
+    kl = u32_to_signed_limbs(ksk[sei_perm(params)])  # [d1, t, nb, n0+1, L]
     return np.transpose(kl, (4, 1, 2, 0, 3)).reshape(NLIMBS, t * nb * d1, cols)
+
+
+def prepare_trgsw(trgsw: np.ndarray, params: GateParams,
+                  device="cpu") -> torch.Tensor:
+    """Limb-encode one user TRGSW [(k+1)l, k+1, N] uint32 for CMUX: the
+    natural-order limbs [NLIMBS, (k+1)l, k+1, N] int8 on `device`, the
+    operand poly.negacyclic_conv_toeplitz reads."""
+    want = ((params.lvl1.k + 1) * params.lvl1.l, params.lvl1.k + 1,
+            params.lvl1.n)
+    if tuple(trgsw.shape) != want:
+        raise ValueError(f"TRGSW must be {want}, got {tuple(trgsw.shape)}")
+    limbs = u32_to_signed_limbs(np.asarray(trgsw, dtype=np.uint32))
+    return torch.from_numpy(np.ascontiguousarray(
+        np.moveaxis(limbs, 3, 0))).to(device)
 
 
 def prepare_keys(ek: EvalKey, device="cpu") -> DeviceKeys:
@@ -58,4 +83,5 @@ def prepare_keys(ek: EvalKey, device="cpu") -> DeviceKeys:
         return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
     return DeviceKeys(bk_ext=put(prepare_bk_ext(ek.bk, p)),
-                      ksk_limbs_sei=put(ksk_limbs_sei(ek.ksk, p)))
+                      ksk_limbs_sei=put(ksk_limbs_sei(ek.ksk, p)),
+                      sei_perm=put(sei_perm(p)))

@@ -9,6 +9,8 @@ accumulation is exact (the sums stay below K * 128 <= 2^21).
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ..params import GateParams
@@ -37,24 +39,37 @@ def ks_decompose_coeffs(a_in: torch.Tensor, params: GateParams) -> torch.Tensor:
     return torch.cat(blocks, dim=1)                    # [B, t*nb*d1]
 
 
+def _per_row(c, shape):
+    """A pre-add constant: an int mod 2^32 (its int32 representative), or
+    an int32 tensor of one value per row ([B] or [B, 1]) reshaped to
+    `shape`."""
+    return c.reshape(shape) if isinstance(c, torch.Tensor) else i32(c)
+
+
 def key_switch(tlwe1: torch.Tensor, ksk_limbs: torch.Tensor,
-               params: GateParams, pre=None) -> torch.Tensor:
+               params: GateParams, pre=None,
+               perm: Optional[torch.Tensor] = None) -> torch.Tensor:
     """KeySwitchFromTLWE / IdentityKeySwitchPreAdd, batched.
 
     tlwe1: [B, d1+1] int32; ksk_limbs: [NLIMBS, K, n0+1] int8;
-    pre = (ca, cb, offset, other) fuses the gate linear combination (ints
-    mod 2^32 and a [B, d1+1] tensor). Returns [B, n0+1] int32.
+    pre = (ca, cb, offset, other) fuses the gate linear combination: ca,
+    cb and offset are ints mod 2^32 or int32 tensors with one value per
+    row ([B] or [B, 1]), other is [B, d1+1]. perm, if given, gathers the
+    d1 mask columns after the pre-add (keys.DeviceKeys.sei_perm: a
+    natural-order input against ksk_limbs_sei). Returns [B, n0+1] int32.
     """
     d1 = params.lvl1.k * params.lvl1.n
     n0 = params.lvl0.dim
     if pre is not None:
         ca, cb, off, other = pre
-        comb = i32(ca) * tlwe1 + i32(cb) * other
+        comb = _per_row(ca, (-1, 1)) * tlwe1 + _per_row(cb, (-1, 1)) * other
         a_in = comb[:, :d1]
-        b_in = comb[:, d1] + i32(off)
+        b_in = comb[:, d1] + _per_row(off, (-1,))
     else:
         a_in = tlwe1[:, :d1]
         b_in = tlwe1[:, d1]
+    if perm is not None:
+        a_in = a_in[:, perm]
     co = ks_decompose_coeffs(a_in, params)
     out = None
     for l in range(NLIMBS):

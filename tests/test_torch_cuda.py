@@ -1,8 +1,11 @@
-"""cufhe_tpu_torch on a CUDA device: the blind-rotation kernel against its
-plain PyTorch version and the lvl0 gates against the golden model, as
-uint32 equality. Every test skips without a CUDA device.
+"""cufhe_tpu_torch on a CUDA device: the blind-rotation and tensor-core
+probe kernels against their plain PyTorch versions, and the gates and mux
+at both levels against the port's golden model, as uint32 equality. Every
+test skips without a CUDA device.
 
-This file imports no JAX, so it also runs where JAX is not installed:
+This file imports neither JAX nor the JAX package (the oracle is the
+port's own golden.py and params.py), so it runs where only the port's
+files are installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
@@ -10,9 +13,10 @@ import numpy as np
 import pytest
 import torch
 
-from cufhe_tpu import golden as G
-from cufhe_tpu import params as P
 from cufhe_tpu_torch import Context, decrypt_bits, encrypt_bits
+from cufhe_tpu_torch import golden as G
+from cufhe_tpu_torch import params as P
+from cufhe_tpu_torch.benchmarks import mxu_peak as MP
 from cufhe_tpu_torch.models.gates import TWO_INPUT
 from cufhe_tpu_torch.ops import blind_rotate as BR
 from cufhe_tpu_torch.ops import keys as TK
@@ -107,3 +111,65 @@ def test_cuda_gates_match_golden(params, cuda):
         assert np.array_equal(to_u32(out.data), want), name
         assert decrypt_bits(out, sk).tolist() == \
             [G.PLAIN_GATES[name](x, y) for x, y in zip(bits0, bits1)]
+
+
+@pytest.mark.parametrize("variant", MP.VARIANTS)
+@pytest.mark.parametrize("shape", [MP.SMALL, (2048, 1536, 512, 18, 1)],
+                         ids=["small", "full-1step"])
+def test_mxu_peak_kernel_matches_ref(variant, shape, cuda):
+    M, K, W, S, steps = shape
+    A, X = MP.make_operands(np.random.default_rng(87), variant, M, K, W, S,
+                            cuda)
+    before = MP.mxu_peak_cuda.launches
+    got = MP.mxu_peak_cuda(A, MP.prepare_x(X), variant, steps)
+    want = MP.mxu_peak_ref(A, X, variant, steps)
+    torch.cuda.synchronize()
+    assert MP.mxu_peak_cuda.launches == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+def test_mxu_peak_kernel_rejects_bad_inputs(cuda):
+    A, X = MP.make_operands(np.random.default_rng(88), "pure", 128, 128, 64,
+                            2, cuda)
+    Xt = MP.prepare_x(X)
+    with pytest.raises(ValueError, match="multiples"):
+        MP.mxu_peak_cuda(A[:, :100].contiguous(), Xt, "pure", 1)
+    with pytest.raises(ValueError, match="want"):
+        MP.mxu_peak_cuda(A, Xt, "bf16", 1)
+    with pytest.raises(ValueError, match="write needs"):
+        A3, X3 = MP.make_operands(np.random.default_rng(89), "write", 128,
+                                  128, 64, 4, cuda)
+        MP.mxu_peak_cuda(A3, MP.prepare_x(X3), "write", 1)
+
+
+@pytest.mark.parametrize("params", [P.TINY, P.PALLAS_BG10, P.TINY_K2],
+                         ids=lambda p: p.name)
+def test_cuda_lvl1_gates_and_mux_match_golden(params, cuda):
+    sk, ek = _keys(params, 90)
+    rng = np.random.default_rng(91)
+    bits0, bits1, bitsc = [0, 1, 0, 1], [0, 0, 1, 1], [0, 1, 1, 0]
+    ctx = Context(ek, device=cuda)
+    for level in (0, 1):
+        a = encrypt_bits(bits0, sk, rng, device=cuda, level=level)
+        b = encrypt_bits(bits1, sk, rng, device=cuda, level=level)
+        c = encrypt_bits(bitsc, sk, rng, device=cuda, level=level)
+        if level == 1:
+            for name in TWO_INPUT:
+                before = BR.blind_rotate_cuda.launches
+                out = ctx.gate(name, a, b)
+                assert BR.blind_rotate_cuda.launches == before + 1
+                want = np.stack([G.gate_lvl1(name, x, y, ek) for x, y in
+                                 zip(to_u32(a.data), to_u32(b.data))])
+                assert np.array_equal(to_u32(out.data), want), name
+        gold = G.mux_lvl0 if level == 0 else G.mux_lvl1
+        for negate in (False, True):
+            before = BR.blind_rotate_cuda.launches
+            out = ctx.mux(c, a, b, negate=negate)
+            assert BR.blind_rotate_cuda.launches == before + 2
+            want = np.stack([gold(x, y, z, ek, negate=negate) for x, y, z in
+                             zip(to_u32(c.data), to_u32(a.data),
+                                 to_u32(b.data))])
+            assert np.array_equal(to_u32(out.data), want)
+            plain = [y if x else z for x, y, z in zip(bitsc, bits0, bits1)]
+            assert decrypt_bits(out, sk).tolist() == \
+                [1 - v if negate else v for v in plain]

@@ -99,3 +99,106 @@ def test_secure_default_rng():
         sec.permutation(3)
     sk = G.keygen(P.TINY)                 # no seed: drawn from the CSPRNG
     assert set(np.unique(sk.lvl0)) <= {0, 1}
+
+
+def _oracle_case(mod, case: str, params):
+    """Run one of golden's newer oracles on inputs made from fixed seeds
+    with `mod`'s own keys; the same call through either module must give
+    the same uint32 result."""
+    sk = mod.keygen(params, seed=51)
+    ek = mod.make_eval_key(sk, seed=52)
+    rng = np.random.default_rng(53)
+    p = sk.params
+    lp = p.lvl1
+    mod_ = 1 << 32
+
+    def lvl0(bits):
+        return mod.encrypt_bit_batch(bits, sk, rng)
+
+    def lvl1(bits):
+        return mod.encrypt_bit_batch(bits, sk, rng, level=1)
+
+    def tv():
+        return rng.integers(0, mod_, lp.n, dtype=np.uint64).astype(np.uint32)
+
+    if case == "encrypt_bit_batch_lvl1":
+        return lvl1([0, 1, 1, 0])
+    if case == "trlwe_encrypt_zero":
+        return mod.trlwe_encrypt_zero(lp, sk.lvl1, rng)
+    if case == "trlwe_encrypt_bits":
+        return mod.trlwe_encrypt_bits(rng.integers(0, 2, lp.n), lp, sk.lvl1,
+                                      rng)
+    if case == "trlwe_phase":
+        ct = mod.trlwe_encrypt_bits(rng.integers(0, 2, lp.n), lp, sk.lvl1,
+                                    rng)
+        return mod.trlwe_phase(ct, lp, sk.lvl1)
+    if case == "trgsw_encrypt":
+        return mod.trgsw_encrypt(1, lp, sk.lvl1, rng)
+    if case == "blind_rotate_tv":
+        return mod.blind_rotate_tv(lvl0([1])[0], tv(), ek)
+    if case == "programmable_bootstrap":
+        return mod.programmable_bootstrap(lvl0([0])[0], tv(), ek)
+    if case == "mod_switch_round":
+        xs = rng.integers(0, mod_, 64, dtype=np.uint64)
+        return np.array([mod.mod_switch_round(int(x), lp.nbit, th)
+                         for x in xs for th in (0, 1, 2)])
+    if case == "blind_rotate_tv_many":
+        return mod.blind_rotate_tv_many(lvl0([1])[0], tv(), ek, 1)
+    if case == "sample_extract_index":
+        tr = rng.integers(0, mod_, (lp.k + 1, lp.n),
+                          dtype=np.uint64).astype(np.uint32)
+        return np.stack([mod.sample_extract_index(tr, lp, j)
+                         for j in (0, 1, 3)])
+    if case == "pbs_many":
+        return mod.pbs_many(lvl0([1])[0], tv(), 2, ek, theta=1)
+    if case == "key_switch_pre":
+        a, b = lvl1([1, 0])
+        return mod.key_switch(a, ek, pre=(1, -1, (-lp.mu) % mod_, b))
+    if case == "gate_lvl1":
+        a, b = lvl1([1, 0])
+        return mod.gate_lvl1("xor", a, b, ek)
+    if case == "not_gate":
+        return mod.not_gate(lvl0([1])[0])
+    if case == "copy_gate":
+        return mod.copy_gate(lvl1([1])[0])
+    if case in ("mux_lvl0", "mux_lvl1"):
+        enc = lvl0 if case == "mux_lvl0" else lvl1
+        c, a, b = enc([1, 0, 1])
+        fn = getattr(mod, case)
+        return np.stack([fn(c, a, b, ek), fn(c, a, b, ek, negate=True)])
+    if case == "cmux":
+        tg = mod.trgsw_encrypt(1, lp, sk.lvl1, rng)
+        c1 = mod.trlwe_encrypt_zero(lp, sk.lvl1, rng)
+        c0 = mod.trlwe_encrypt_zero(lp, sk.lvl1, rng)
+        return mod.cmux(tg, c1, c0, lp)
+    if case == "refresh":
+        return mod.refresh(mod.trlwe_encrypt_zero(lp, sk.lvl1, rng), ek)
+    if case == "bootstrap_tlwe2trlwe":
+        return mod.bootstrap_tlwe2trlwe(lvl0([1])[0], lp.mu, ek)
+    if case == "sei_and_ks":
+        return mod.sei_and_ks(mod.trlwe_encrypt_zero(lp, sk.lvl1, rng), ek)
+    raise KeyError(case)
+
+
+ORACLE_CASES = ["encrypt_bit_batch_lvl1", "trlwe_encrypt_zero",
+                "trlwe_encrypt_bits", "trlwe_phase", "trgsw_encrypt",
+                "blind_rotate_tv", "programmable_bootstrap",
+                "mod_switch_round", "blind_rotate_tv_many",
+                "sample_extract_index", "pbs_many", "key_switch_pre",
+                "gate_lvl1", "not_gate", "copy_gate", "mux_lvl0", "mux_lvl1",
+                "cmux", "refresh", "bootstrap_tlwe2trlwe", "sei_and_ks"]
+
+
+@pytest.mark.parametrize("case", ORACLE_CASES)
+def test_oracles_match(case):
+    got = _oracle_case(G, case, P.TINY)
+    want = _oracle_case(JG, case, JP.TINY)
+    assert got.dtype == want.dtype and np.array_equal(got, want), case
+
+
+@pytest.mark.parametrize("case", ["gate_lvl1", "mux_lvl1", "pbs_many",
+                                  "cmux"])
+def test_oracles_match_k2(case):
+    got = _oracle_case(G, case, P.TINY_K2)
+    want = _oracle_case(JG, case, JP.TINY_K2)
+    assert np.array_equal(got, want), case
