@@ -6,9 +6,10 @@
 Phases, each raising on failure:
   1. the card's name and power limit (nvidia-smi);
   2. build of the CUDA kernels from csrc/ (nvcc, sm_90a, one process per
-     source), timed, with ptxas's register and spill report;
+     source), timed, with ptxas's registers and spills per kernel (a spill
+     fails the phase);
   3. the blind-rotation kernel against its plain PyTorch version, bit for
-     bit, on random accumulators (8 rows) at five parameter sets;
+     bit, on random accumulators (8 and 129 rows) at five parameter sets;
   4. Context(ek, "cuda").nand on the four input pairs at tfhepp_128bit
      against the port's NumPy gate oracle golden.gate_lvl0, as uint32;
   5. the main path: encrypt -> a chain of lvl0 NANDs on device-resident
@@ -16,6 +17,9 @@ Phases, each raising on failure:
      errors and one kernel launch per gate; gates/s;
   6. one blind rotation at the main path's shape through the kernel and
      through the plain version: equal, and both timed with CUDA events;
+     the kernel's int8 TMAC/s, its bound on the card, and one torch._int_mm
+     at the product's step shape times n0 as a yardstick (the port never
+     calls it);
   7. the tensor-core probe kernel (csrc/mxu_peak.cu) against its plain
      version, bit for bit: all four variants at the small shape, pure and
      place at the full S = 18 shape; then the probe's path
@@ -27,7 +31,10 @@ Phases, each raising on failure:
   9. the same paths at full width (tfhepp_128bit, batch 4096, ciphertexts
      on the device): 0 decrypt errors, equality with golden on 2 rows
      (computed in worker processes while the card runs), one kernel
-     launch per blind rotation; gates/s of the lvl1 NAND and the mux.
+     launch per blind rotation; gates/s of the lvl1 NAND and the mux;
+ 10. one lvl0 NAND at batch 4096 under torch.profiler: device time and
+     launches of the product kernel, rotdec_kernel and the key switch, and
+     the device's idle share.
 
 Prints the card line, a {"kernels": [...]} line, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -51,6 +58,10 @@ SOURCE = "cufhe_tpu_torch/csrc/blind_rotate.cu"
 REPLACES = "cufhe_tpu/ops/pallas_br.py:762"
 PROBE_SOURCE = "cufhe_tpu_torch/csrc/mxu_peak.cu"
 PROBE_REPLACES = "benchmarks/mxu_peak.py:116"
+#: the H100 SXM's dense int8 tensor-core rate (ops/s, a MAC is two) and its
+#: device-memory rate (bytes/s), NVIDIA's data sheet
+INT8_OPS_PER_S = 1979e12
+HBM_BYTES_PER_S = 3.35e12
 #: rows of each full-width result held against golden (seconds each)
 GOLDEN_ROWS = (0, BATCH - 1)
 WORKERS = 6
@@ -81,6 +92,48 @@ def cuda_ms(fn, n: int = 1):
     end.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(end) / n
+
+
+def ptxas_report(log_text: str):
+    """(kernel, registers, spill line) for each entry function in nvcc's
+    build log (-Xptxas -v)."""
+    import re
+    out, name, spills = [], None, ""
+    for line in log_text.splitlines():
+        m = re.search(r"entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"([a-z_]+_kernel)(ILi(\d+)E)?", m.group(1))
+            name = (f"{k.group(1)}<{k.group(3)}>" if k and k.group(3)
+                    else k.group(1) if k else m.group(1))
+            spills = ""
+        elif name and "spill" in line:
+            spills = line.split(",", 1)[1].strip()
+        elif name and "registers" in line:
+            out.append((name, int(re.search(r"Used (\d+) registers",
+                                             line).group(1)), spills))
+            name = None
+    return out
+
+
+def bound(ops: float, nbytes: float):
+    """(ms, "operations" or "bytes"): the least time the card could take
+    for `ops` int8 operations moving `nbytes` bytes of device memory."""
+    ops_ms = ops / INT8_OPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def rotation_work(params, rows: int):
+    """(int8 MACs, bytes each read or written once) of one blind rotation
+    of `rows` accumulators: acc in and out, abar, the key."""
+    from cufhe_tpu_torch.ops.limbs import NLIMBS, decomp_digit_limb_plan
+    lp = params.lvl1
+    n0, N, kp1 = params.lvl0.dim, lp.n, lp.k + 1
+    I = kp1 * lp.l * decomp_digit_limb_plan(lp.Bgbit)[0]
+    macs = float(rows) * (I * N) * (kp1 * NLIMBS * N) * n0
+    nbytes = (2 * rows * kp1 * N * 4 + n0 * rows * 4
+              + n0 * I * kp1 * NLIMBS * 2 * N)
+    return macs, nbytes
 
 
 def random_rotation_inputs(params, rows: int, seed: int, device):
@@ -174,8 +227,23 @@ def phase_probe(info: dict, tag: str) -> dict:
         raise AssertionError(f"probe failed: max_abs_err {max_err}, "
                              f"{launches} kernel launches")
     main_row = next(r for r in rows if r["case"] == "pallas-pure-w512")
+    # the main row's function, pure = sum_s A_s X_s, is one library product
+    # of the operands laid side by side, once per step
+    M, K, W, S, steps = MP.FULL
+    A, X = MP.make_operands(rng, "pure", M, K, W, S, dev)
+    a_cat = A.permute(1, 0, 2).reshape(M, S * K).contiguous()
+    x_cat = X.reshape(S * K, W)
+    torch._int_mm(a_cat, x_cat)
+    _, lib_ms = cuda_ms(lambda: torch._int_mm(a_cat, x_cat), 5)
+    macs = float(M) * K * W * S * steps
+    bound_ms, bound_by = bound(2 * macs, A.numel() + X.numel() + 4 * M * W)
+    log(f"  pallas-pure-w512: bound {bound_ms:.3f} ms ({bound_by}); "
+        f"library, torch._int_mm [{M}, {S * K}] @ [{S * K}, {W}] x {steps} "
+        f"steps: {lib_ms * steps:.3f} ms {tag}")
     return {"launches": launches, "max_abs_err": max_err,
-            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"]}
+            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms * steps}
 
 
 def phase_tiny_paths() -> None:
@@ -404,6 +472,84 @@ def phase_full_width(ctx, sk, ek, tag: str) -> None:
             f"{time.perf_counter() - t0:.1f} s for the workers)")
 
 
+def phase_profile(ctx, sk, tag: str) -> None:
+    """10. One lvl0 NAND at batch 4096 under torch.profiler: device time
+    and launches of the product kernel, of rotdec_kernel and of the key
+    switch (the kernels key_switch launches when profiled alone at the
+    gate's shape), and the device's idle share over the gate."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    import cufhe_tpu_torch as T
+    from cufhe_tpu_torch.ops.keyswitch import key_switch
+    from cufhe_tpu_torch.ops.poly import sample_extract_for_ks
+
+    params = ctx.params
+    rng = np.random.default_rng(12)
+    a, b = (T.encrypt_bits(rng.integers(0, 2, BATCH), sk, rng, device=DEV)
+            for _ in range(2))
+    acc, _ = random_rotation_inputs(params, BATCH, 13, DEV)
+    tlwe1 = sample_extract_for_ks(acc, params.lvl1)
+
+    def kernels(fn):
+        """{kernel name: [ms, launches]}, device busy ms, host ms."""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        per, spans = {}, []
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                row = per.setdefault(e.name, [0.0, 0])
+                row[0] += e.device_time_total / 1e3
+                row[1] += 1
+                spans.append((e.time_range.start, e.time_range.end))
+        busy, end = 0.0, None
+        for s, t in sorted(spans):
+            if end is None or s > end:
+                busy += t - s
+                end = t
+            elif t > end:
+                busy += t - end
+                end = t
+        return per, busy / 1e3, wall
+
+    ks, ks_busy, _ = kernels(lambda: key_switch(tlwe1, ctx.keys.ksk_limbs_sei,
+                                                params))
+    per, busy, wall = kernels(lambda: ctx.nand(a, b))
+    if not per:
+        raise AssertionError("torch.profiler recorded no device kernels")
+    groups = {"product (extprod_kernel)": [0.0, 0],
+              "rotdec_kernel": [0.0, 0],
+              "key switch (kernels of key_switch)": [0.0, 0],
+              "everything else": [0.0, 0]}
+    for name, (ms, n) in per.items():
+        key = ("product (extprod_kernel)" if "extprod_kernel" in name
+               else "rotdec_kernel" if "rotdec_kernel" in name
+               else "key switch (kernels of key_switch)" if name in ks
+               else "everything else")
+        groups[key][0] += ms
+        groups[key][1] += n
+    log(f"profile, one lvl0 NAND at batch {BATCH}, {params.name}: host "
+        f"{wall:.1f} ms, device busy {busy:.1f} ms (idle "
+        f"{100 * (1 - busy / wall):.2f} %), {sum(n for _, n in per.values())}"
+        f" kernels {tag}")
+    for key, (ms, n) in groups.items():
+        log(f"  {key}: {ms:.2f} ms in {n} launches ({100 * ms / busy:.2f} % "
+            f"of busy)")
+    log(f"  key_switch alone at the gate's shape: {ks_busy:.3f} ms busy, "
+        f"{sum(n for _, n in ks.values())} kernels")
+    n0 = params.lvl0.dim
+    for key in ("product (extprod_kernel)", "rotdec_kernel"):
+        if groups[key][1] != n0:
+            raise AssertionError(f"profile: {groups[key][1]} launches of "
+                                 f"{key}, want {n0}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -431,13 +577,16 @@ def main() -> int:
     _build.load()
     build_s = time.perf_counter() - t0
     log(f"build: {build_s:.3f} s {tag} ({_build.build_dir()})")
-    ptxas = (_build.build_dir() / "build.log").read_text().splitlines()
-    for line in ptxas:
-        if "entry function" in line or "registers" in line \
-                or "spill" in line:
-            log("  " + line.strip())
+    report = ptxas_report((_build.build_dir() / "build.log").read_text())
+    for name, regs, spills in report:
+        log(f"  {name}: {regs} registers, spills: {spills}")
+        if not spills.startswith("0 bytes spill stores, 0 bytes spill loads"):
+            raise AssertionError(f"{name} spills registers")
+    for want in ("extprod_kernel", "rotdec_kernel", "mxu_peak_kernel"):
+        if not any(name.startswith(want) for name, _, _ in report):
+            raise AssertionError(f"no ptxas report for {want}")
 
-    # 3. kernel vs plain version at five parameter sets, 8 rows
+    # 3. kernel vs plain version at five parameter sets, 8 and 129 rows
     max_err = 0
     presets = (T.PALLAS_TINY, T.PALLAS_TINY_K2, T.PALLAS_BG10, T.TINY,
                T.TFHEPP_128)
@@ -447,18 +596,19 @@ def main() -> int:
         ek = G.make_eval_key(sk, seed=200 + i)
         eks[params.name] = (sk, ek)
         keys = prepare_keys(ek, dev)
-        acc, abar = random_rotation_inputs(params, 8, 300 + i, dev)
-        before = BR.blind_rotate_cuda.launches
-        got = BR.blind_rotate_cuda(acc, abar, keys.bk_ext, params)
-        want = BR.blind_rotate_ref(acc, abar, keys.bk_ext, params)
-        torch.cuda.synchronize()
-        err = u32_max_abs_err(got, want)
-        launched = BR.blind_rotate_cuda.launches - before
-        log(f"kernel vs plain {params.name}: max_abs_err {err} "
-            f"(launches {launched})")
-        if err != 0 or launched != 1:
-            raise AssertionError(f"kernel disagrees at {params.name}")
-        max_err = max(max_err, err)
+        for rows in (8, 129):
+            acc, abar = random_rotation_inputs(params, rows, 300 + i, dev)
+            before = BR.blind_rotate_cuda.launches
+            got = BR.blind_rotate_cuda(acc, abar, keys.bk_ext, params)
+            want = BR.blind_rotate_ref(acc, abar, keys.bk_ext, params)
+            torch.cuda.synchronize()
+            err = u32_max_abs_err(got, want)
+            launched = BR.blind_rotate_cuda.launches - before
+            log(f"kernel vs plain {params.name}, {rows} rows: max_abs_err "
+                f"{err} (launches {launched})")
+            if err != 0 or launched != 1:
+                raise AssertionError(f"kernel disagrees at {params.name}")
+            max_err = max(max_err, err)
         del keys
 
     # 4. the gate vs the golden model at tfhepp_128bit
@@ -508,17 +658,34 @@ def main() -> int:
     want, plain_ms = cuda_ms(lambda: BR.blind_rotate_ref(
         acc, abar, ctx.keys.bk_ext, T.TFHEPP_128))
     err = u32_max_abs_err(got, want)
+    macs, nbytes = rotation_work(T.TFHEPP_128, BATCH)
+    bound_ms, bound_by = bound(2 * macs, nbytes)
     log(f"blind rotation at B={BATCH}, {T.TFHEPP_128.name}: kernel "
-        f"{ms:.1f} ms, plain PyTorch {plain_ms:.1f} ms, max_abs_err {err} "
-        f"{tag}")
+        f"{ms:.1f} ms ({macs / ms / 1e9:.2f} int8 TMAC/s), plain PyTorch "
+        f"{plain_ms:.1f} ms, max_abs_err {err}; bound {bound_ms:.1f} ms "
+        f"({bound_by}: {macs:.4g} MACs, {nbytes / 1e6:.1f} MB) {tag}")
     if err != 0:
         raise AssertionError("kernel disagrees at the main path's shape")
     max_err = max(max_err, err)
+    # yardstick: the library's int8 product at one step's shape, x n0
+    n0, lp = T.TFHEPP_128.lvl0.dim, T.TFHEPP_128.lvl1
+    M, Wc = BATCH, (lp.k + 1) * 4 * lp.n        # columns (o, limb, c)
+    Kc = round(macs / (M * Wc * n0))            # contraction I * N
+    a8 = torch.randint(-128, 128, (M, Kc), dtype=torch.int8, device=dev)
+    b8 = torch.randint(-128, 128, (Kc, Wc), dtype=torch.int8, device=dev)
+    torch._int_mm(a8, b8)
+    _, step_ms = cuda_ms(lambda: torch._int_mm(a8, b8), 5)
+    library_ms = step_ms * n0
+    log(f"library yardstick: torch._int_mm [{M}, {Kc}] @ [{Kc}, {Wc}] "
+        f"{step_ms:.3f} ms x {n0} steps = {library_ms:.1f} ms "
+        f"({macs / library_ms / 1e9:.2f} TMAC/s) {tag}")
+    del a8, b8, got, want
 
     # 7. the tensor-core probe; 8. and 9. the bootstrapping paths
     probe = phase_probe(info, tag)
     phase_tiny_paths()
     phase_full_width(ctx, sk, ek, tag)
+    phase_profile(ctx, sk, tag)
 
     for mod in ("jax", "cufhe_tpu"):
         if mod in sys.modules:
@@ -526,7 +693,8 @@ def main() -> int:
     log(json.dumps({"kernels": [
         {"name": "blind_rotate", "route": "cuda", "source": SOURCE,
          "replaces": REPLACES, "launches": launches, "max_abs_err": max_err,
-         "ms": ms, "plain_ms": plain_ms},
+         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+         "bound_by": bound_by, "library_ms": library_ms},
         {"name": "mxu_peak", "route": "cuda", "source": PROBE_SOURCE,
          "replaces": PROBE_REPLACES, **probe}]}))
     log(json.dumps({"ok": True, "device": {

@@ -9,6 +9,8 @@ files are installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -44,27 +46,35 @@ def _random_inputs(params, rows, seed, device):
             from_u32(abar.astype(np.uint32), device))
 
 
+@functools.lru_cache(maxsize=None)
+def _device_keys(params, seed):
+    """Eval key prepared on the card, once per preset (tfhepp_128bit's
+    key generation takes seconds)."""
+    return TK.prepare_keys(_keys(params, seed)[1], torch.device("cuda"))
+
+
+@pytest.mark.parametrize("rows", [1, 8, 129])            # ragged row tiles
 @pytest.mark.parametrize("params", [P.PALLAS_TINY, P.PALLAS_TINY_K2,
-                                    P.PALLAS_BG10, P.TINY, P.TINY_K2],
+                                    P.PALLAS_BG10, P.TINY, P.TINY_K2,
+                                    P.TFHEPP_128],
                          ids=lambda p: p.name)
-def test_cuda_kernel_matches_ref(params, cuda):
-    _, ek = _keys(params, 80)
-    keys = TK.prepare_keys(ek, cuda)
-    acc, abar = _random_inputs(params, 37, 81, cuda)   # a ragged row tile
+def test_cuda_kernel_matches_ref(params, rows, cuda):
+    keys = _device_keys(params, 80)
+    acc, abar = _random_inputs(params, rows, 81, cuda)
     before = BR.blind_rotate_cuda.launches
     got = BR.blind_rotate(acc, abar, keys.bk_ext, params)
     want = BR.blind_rotate_ref(acc, abar, keys.bk_ext, params)
     torch.cuda.synchronize()
     assert BR.blind_rotate_cuda.launches == before + 1
     assert torch.equal(got, want)
-    assert torch.equal(got.cpu(), BR.blind_rotate_ref(
-        acc.cpu(), abar.cpu(), keys.bk_ext.cpu(), params))
+    if params.lvl1.n <= 128:          # the CPU's plain version too
+        assert torch.equal(got.cpu(), BR.blind_rotate_ref(
+            acc.cpu(), abar.cpu(), keys.bk_ext.cpu(), params))
 
 
 def test_cuda_kernel_rejects_bad_inputs(cuda):
     params = P.TINY
-    _, ek = _keys(params, 82)
-    keys = TK.prepare_keys(ek, cuda)
+    keys = _device_keys(params, 82)
     acc, abar = _random_inputs(params, 4, 83, cuda)
     with pytest.raises(ValueError, match="want"):
         BR.blind_rotate_cuda(acc.to(torch.int64), abar, keys.bk_ext, params)
@@ -73,6 +83,20 @@ def test_cuda_kernel_rejects_bad_inputs(cuda):
                              abar, keys.bk_ext, params)
     with pytest.raises(ValueError, match="CUDA device"):
         BR.blind_rotate_cuda(acc, abar.cpu(), keys.bk_ext, params)
+    # limb sums up to I*N*2^(dbits-1)*128 = 6 * 2^15 * 2^14 >= 2^31 could
+    # leave the tensor cores' int32 accumulators: the kernel refuses the set
+    wide = P.GateParams(
+        name="int32-bound", lvl0=P.LweParams(n=1),
+        lvl1=P.TrlweParams(nbit=15, k=1, l=3, Bgbit=8), ks=P.KeySwitchParams())
+    N = wide.lvl1.n
+    before = BR.blind_rotate_cuda.launches
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        BR.blind_rotate_cuda(
+            torch.zeros((1, 2, N), dtype=torch.int32, device=cuda),
+            torch.zeros((1, 1), dtype=torch.int32, device=cuda),
+            torch.zeros((1, 6, 2, 4, 2 * N), dtype=torch.int8, device=cuda),
+            wide)
+    assert BR.blind_rotate_cuda.launches == before
 
 
 def test_int_mm_cuda_shape_limits(cuda):
