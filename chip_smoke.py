@@ -6,8 +6,9 @@
 Phases, each raising on failure:
   1. the card's name and power limit (nvidia-smi);
   2. build of the CUDA kernels from csrc/ (nvcc, sm_90a, one process per
-     source), timed, with ptxas's registers and spills per kernel (a spill
-     fails the phase);
+     source), timed, with ptxas's registers and spills per kernel (a spill,
+     a missing kernel or ptxas's C7508 warning, setmaxnreg ignored, fails
+     the phase);
   3. the blind-rotation kernel against its plain PyTorch version, bit for
      bit, on random accumulators (8 and 129 rows) at five parameter sets;
   4. Context(ek, "cuda").nand on the four input pairs at tfhepp_128bit
@@ -20,11 +21,12 @@ Phases, each raising on failure:
      the kernel's int8 TMAC/s, its bound on the card, and one torch._int_mm
      at the product's step shape times n0 as a yardstick (the port never
      calls it);
-  7. the tensor-core probe kernel (csrc/mxu_peak.cu) against its plain
-     version, bit for bit: all four variants at the small shape, pure and
-     place at the full S = 18 shape; then the probe's path
-     (benchmarks.mxu_peak.run_probe: library rows and kernel rows beside
-     their plain versions, CUDA events), counted;
+  7. both tensor-core probe kernels, wgmma (csrc/mxu_peak_wgmma.cu) and
+     mma.sync (csrc/mxu_peak.cu), against their plain version, bit for
+     bit: all four variants at the small shape, pure and place at the full
+     S = 18 shape; then the probe's path (benchmarks.mxu_peak.run_probe:
+     library rows, wgmma rows and two mma.sync rows, each beside its plain
+     version, CUDA events), counted per kernel;
   8. the bootstrapping paths at tiny presets on the card, equal as uint32
      to golden: lvl1 gates, mux/nmux at both levels, gate_rows,
      gate_chain, cmux, refresh, programmable_bootstrap, pbs_many;
@@ -57,6 +59,7 @@ REPS = 2
 SOURCE = "cufhe_tpu_torch/csrc/blind_rotate.cu"
 REPLACES = "cufhe_tpu/ops/pallas_br.py:762"
 PROBE_SOURCE = "cufhe_tpu_torch/csrc/mxu_peak.cu"
+WGMMA_SOURCE = "cufhe_tpu_torch/csrc/mxu_peak_wgmma.cu"
 PROBE_REPLACES = "benchmarks/mxu_peak.py:116"
 #: the H100 SXM's dense int8 tensor-core rate (ops/s, a MAC is two) and its
 #: device-memory rate (bytes/s), NVIDIA's data sheet
@@ -102,8 +105,10 @@ def ptxas_report(log_text: str):
     for line in log_text.splitlines():
         m = re.search(r"entry function '(\S+)'", line)
         if m:
-            k = re.search(r"([a-z_]+_kernel)(ILi(\d+)E)?", m.group(1))
-            name = (f"{k.group(1)}<{k.group(3)}>" if k and k.group(3)
+            k = re.search(r"([a-z_]+_kernel)(I((?:Li\d+E)+)E)?", m.group(1))
+            args = ", ".join(re.findall(r"Li(\d+)E", k.group(3) or "")
+                             ) if k else ""
+            name = (f"{k.group(1)}<{args}>" if args
                     else k.group(1) if k else m.group(1))
             spills = ""
         elif name and "spill" in line:
@@ -113,6 +118,12 @@ def ptxas_report(log_text: str):
                                              line).group(1)), spills))
             name = None
     return out
+
+
+def ptxas_warnings(log_text: str) -> list:
+    """ptxas's warning lines in nvcc's build log."""
+    return [line.strip() for line in log_text.splitlines()
+            if line.lstrip().startswith("ptxas") and "warning" in line]
 
 
 def bound(ops: float, nbytes: float):
@@ -189,45 +200,53 @@ def _g_b2t_refresh(ct):
 
 
 def phase_probe(info: dict, tag: str) -> dict:
-    """7. The probe kernel against its plain version, then the probe's
-    path with the launch count zeroed just before it."""
+    """7. Both probe kernels against their plain version, then the probe's
+    path with the launch counts zeroed just before it. Returns the kernels
+    line's entries of the two kernels, by instruction."""
     import numpy as np
     import torch
     from cufhe_tpu_torch.benchmarks import mxu_peak as MP
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(9)
-    max_err = 0
+    max_err = dict.fromkeys(MP.INSTRUCTIONS, 0)
     M, K, W, S, _ = MP.FULL
     for shape, variants in ((MP.SMALL, MP.VARIANTS),
                             ((M, K, W, S, 1), ("pure", "place"))):
         for v in variants:
             A, X = MP.make_operands(rng, v, *shape[:4], dev)
-            got = MP.mxu_peak_cuda(A, MP.prepare_x(X), v, shape[4])
             want = MP.mxu_peak_ref(A, X, v, shape[4])
-            torch.cuda.synchronize()
-            err = int((got.long() - want.long()).abs().max())
-            log(f"mxu_peak kernel vs plain, {v}, (M, K, W, S, steps) = "
-                f"{shape}: max_abs_err {err}")
-            if err != 0:
-                raise AssertionError(f"mxu_peak {v} disagrees at {shape}")
+            for instr in MP.INSTRUCTIONS:
+                got = MP.mxu_peak_cuda(A, MP.prepare_x(X), v, shape[4],
+                                       instr)
+                torch.cuda.synchronize()
+                err = int((got.long() - want.long()).abs().max())
+                log(f"mxu_peak {instr} kernel vs plain, {v}, (M, K, W, S, "
+                    f"steps) = {shape}: max_abs_err {err}")
+                if err != 0:
+                    raise AssertionError(f"mxu_peak {instr} {v} disagrees "
+                                         f"at {shape}")
     MP.mxu_peak_cuda.launches = 0
+    for instr in MP.INSTRUCTIONS:
+        MP.mxu_peak_cuda.by_instruction[instr] = 0
     rows = MP.run_probe(info, emit=lambda line: log("  probe " + line))
-    launches = MP.mxu_peak_cuda.launches
+    launches = dict(MP.mxu_peak_cuda.by_instruction)
     for r in rows:
         line = f"  {r['case']}: {r['tmacs_per_sec']:.2f} TMAC/s"
         if r["path"] == "kernel":
-            line += (f" ({r['instruction']}, {r['ms']:.3f} ms) vs plain "
+            line += (f" ({r['instruction']}, {r['ms']:.3f} ms, "
+                     f"{r['smem_gb']:.2f} GB into shared memory) vs plain "
                      f"{r['plain_tmacs_per_sec']:.2f} TMAC/s "
                      f"({r['plain_ms']:.3f} ms), max_abs_err "
                      f"{r['max_abs_err']}")
+            instr = ("wgmma" if r["instruction"].startswith("wgmma")
+                     else "mma_sync")
+            max_err[instr] = max(max_err[instr], r["max_abs_err"])
         log(line + f" {tag}")
-        max_err = max(max_err, r.get("max_abs_err", 0))
-    if max_err or launches == 0:
+    if any(max_err.values()) or not all(launches.values()):
         raise AssertionError(f"probe failed: max_abs_err {max_err}, "
-                             f"{launches} kernel launches")
-    main_row = next(r for r in rows if r["case"] == "pallas-pure-w512")
-    # the main row's function, pure = sum_s A_s X_s, is one library product
+                             f"kernel launches {launches}")
+    # the main rows' function, pure = sum_s A_s X_s, is one library product
     # of the operands laid side by side, once per step
     M, K, W, S, steps = MP.FULL
     A, X = MP.make_operands(rng, "pure", M, K, W, S, dev)
@@ -235,15 +254,25 @@ def phase_probe(info: dict, tag: str) -> dict:
     x_cat = X.reshape(S * K, W)
     torch._int_mm(a_cat, x_cat)
     _, lib_ms = cuda_ms(lambda: torch._int_mm(a_cat, x_cat), 5)
+    lib_ms *= steps
     macs = float(M) * K * W * S * steps
     bound_ms, bound_by = bound(2 * macs, A.numel() + X.numel() + 4 * M * W)
-    log(f"  pallas-pure-w512: bound {bound_ms:.3f} ms ({bound_by}); "
-        f"library, torch._int_mm [{M}, {S * K}] @ [{S * K}, {W}] x {steps} "
-        f"steps: {lib_ms * steps:.3f} ms {tag}")
-    return {"launches": launches, "max_abs_err": max_err,
-            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": lib_ms * steps}
+    log(f"  pure-w512: bound {bound_ms:.3f} ms ({bound_by}); library, "
+        f"torch._int_mm [{M}, {S * K}] @ [{S * K}, {W}] x {steps} steps: "
+        f"{lib_ms:.3f} ms {tag}")
+    M, K, W, S, steps = MP.K1_STEP
+    k1_ms, k1_by = bound(2.0 * M * K * W * S * steps,
+                         S * (M * K + K * W) + 4 * M * W)
+    log(f"  pure-k1step: bound {k1_ms:.3f} ms ({k1_by}) {tag}")
+    out = {}
+    for instr, case in (("wgmma", "pallas-pure-w512"),
+                        ("mma_sync", "mma_sync-pure-w512")):
+        row = next(r for r in rows if r["case"] == case)
+        out[instr] = {"launches": launches[instr],
+                      "max_abs_err": max_err[instr], "ms": row["ms"],
+                      "plain_ms": row["plain_ms"], "bound_ms": bound_ms,
+                      "bound_by": bound_by, "library_ms": lib_ms}
+    return out
 
 
 def phase_tiny_paths() -> None:
@@ -577,14 +606,20 @@ def main() -> int:
     _build.load()
     build_s = time.perf_counter() - t0
     log(f"build: {build_s:.3f} s {tag} ({_build.build_dir()})")
-    report = ptxas_report((_build.build_dir() / "build.log").read_text())
+    build_log = (_build.build_dir() / "build.log").read_text()
+    report = ptxas_report(build_log)
     for name, regs, spills in report:
         log(f"  {name}: {regs} registers, spills: {spills}")
         if not spills.startswith("0 bytes spill stores, 0 bytes spill loads"):
             raise AssertionError(f"{name} spills registers")
-    for want in ("extprod_kernel", "rotdec_kernel", "mxu_peak_kernel"):
-        if not any(name.startswith(want) for name, _, _ in report):
+    for want in ("extprod_kernel", "rotdec_kernel", "mxu_peak_kernel",
+                 "mxu_peak_wgmma_kernel"):
+        if not any(name.split("<")[0] == want for name, _, _ in report):
             raise AssertionError(f"no ptxas report for {want}")
+    for line in ptxas_warnings(build_log):
+        log(f"  {line}")
+        if "C7508" in line:
+            raise AssertionError("ptxas ignored setmaxnreg (C7508)")
 
     # 3. kernel vs plain version at five parameter sets, 8 and 129 rows
     max_err = 0
@@ -614,7 +649,7 @@ def main() -> int:
     # 4. the gate vs the golden model at tfhepp_128bit
     sk, ek = eks[T.TFHEPP_128.name]
     t0 = time.perf_counter()
-    ctx = T.Context(ek, device="cuda")
+    ctx = T.Context(ek)                 # keys on the card by default
     torch.cuda.synchronize()
     log(f"key preparation and upload at {T.TFHEPP_128.name}: "
         f"{time.perf_counter() - t0:.3f} s (host clock)")
@@ -635,8 +670,8 @@ def main() -> int:
     bits0 = rng.integers(0, 2, BATCH)
     bits1 = rng.integers(0, 2, BATCH)
     BR.blind_rotate_cuda.launches = 0
-    a = T.encrypt_bits(bits0, sk, rng, device="cuda")
-    b = T.encrypt_bits(bits1, sk, rng, device="cuda")
+    a = T.encrypt_bits(bits0, sk, rng)  # on the card by default
+    b = T.encrypt_bits(bits1, sk, rng)
     out = ctx.nand(a, b)
     out, times = time_nand_chain(ctx, out, b, ITERS, REPS)
     bits = T.decrypt_bits(out, sk)
@@ -696,7 +731,9 @@ def main() -> int:
          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
          "bound_by": bound_by, "library_ms": library_ms},
         {"name": "mxu_peak", "route": "cuda", "source": PROBE_SOURCE,
-         "replaces": PROBE_REPLACES, **probe}]}))
+         "replaces": PROBE_REPLACES, **probe["mma_sync"]},
+        {"name": "mxu_peak_wgmma", "route": "cuda", "source": WGMMA_SOURCE,
+         "replaces": PROBE_REPLACES, **probe["wgmma"]}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -106,6 +106,10 @@ def load() -> ctypes.CDLL:
             [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
             + [ctypes.c_void_p])
         lib.cufhe_mxu_peak.restype = ctypes.c_int
+        lib.cufhe_mxu_peak_wgmma.argtypes = (
+            [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+            + [ctypes.c_void_p])
+        lib.cufhe_mxu_peak_wgmma.restype = ctypes.c_int
         lib.cufhe_error_string.argtypes = [ctypes.c_int]
         lib.cufhe_error_string.restype = ctypes.c_char_p
         _lib = lib

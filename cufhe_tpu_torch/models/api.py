@@ -41,10 +41,11 @@ class TrlweCtxt:
 
 def encrypt_bits(bits: Sequence[int], sk: G.SecretKey,
                  rng: Optional[np.random.Generator] = None,
-                 device="cpu", level: int = 0) -> Ctxt:
+                 device="cuda", level: int = 0) -> Ctxt:
     """Encrypt bits into a ciphertext batch at `level` on `device` (client
-    side, NumPy). rng=None draws from the OS CSPRNG; pass a seeded
-    Generator only for reproducible tests."""
+    side, NumPy), by default the card, where Context keeps its keys.
+    rng=None draws from the OS CSPRNG; pass a seeded Generator only for
+    reproducible tests."""
     return Ctxt(from_u32(G.encrypt_bit_batch(bits, sk, rng, level=level),
                          device), level)
 

@@ -62,7 +62,7 @@ def ksk_limbs_sei(ksk: np.ndarray, params: GateParams) -> np.ndarray:
 
 
 def prepare_trgsw(trgsw: np.ndarray, params: GateParams,
-                  device="cpu") -> torch.Tensor:
+                  device="cuda") -> torch.Tensor:
     """Limb-encode one user TRGSW [(k+1)l, k+1, N] uint32 for CMUX: the
     natural-order limbs [NLIMBS, (k+1)l, k+1, N] int8 on `device`, the
     operand poly.negacyclic_conv_toeplitz reads."""
@@ -75,8 +75,9 @@ def prepare_trgsw(trgsw: np.ndarray, params: GateParams,
         np.moveaxis(limbs, 3, 0))).to(device)
 
 
-def prepare_keys(ek: EvalKey, device="cpu") -> DeviceKeys:
-    """One-time host-side key conversion and upload to `device`."""
+def prepare_keys(ek: EvalKey, device="cuda") -> DeviceKeys:
+    """One-time host-side key conversion and upload to `device` (by
+    default the card)."""
     p = ek.params
 
     def put(x: np.ndarray) -> torch.Tensor:

@@ -1,7 +1,7 @@
-"""cufhe_tpu_torch on a CUDA device: the blind-rotation and tensor-core
-probe kernels against their plain PyTorch versions, and the gates and mux
-at both levels against the port's golden model, as uint32 equality. Every
-test skips without a CUDA device.
+"""cufhe_tpu_torch on a CUDA device: the blind-rotation kernel and both
+tensor-core probe kernels (wgmma and mma.sync) against their plain PyTorch
+versions, and the gates and mux at both levels against the port's golden
+model, as uint32 equality. Every test skips without a CUDA device.
 
 This file imports neither JAX nor the JAX package (the oracle is the
 port's own golden.py and params.py), so it runs where only the port's
@@ -137,19 +137,50 @@ def test_cuda_gates_match_golden(params, cuda):
             [G.PLAIN_GATES[name](x, y) for x, y in zip(bits0, bits1)]
 
 
+def _probe_matches_ref(variant, shape, instruction, device, seed=87):
+    M, K, W, S, steps = shape
+    A, X = MP.make_operands(np.random.default_rng(seed), variant, M, K, W,
+                            S, device)
+    before = dict(MP.mxu_peak_cuda.by_instruction)
+    total = MP.mxu_peak_cuda.launches
+    got = MP.mxu_peak_cuda(A, MP.prepare_x(X), variant, steps, instruction)
+    want = MP.mxu_peak_ref(A, X, variant, steps)
+    torch.cuda.synchronize()
+    assert MP.mxu_peak_cuda.launches == total + 1
+    for instr, n in MP.mxu_peak_cuda.by_instruction.items():
+        assert n == before[instr] + (instr == instruction)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
 @pytest.mark.parametrize("variant", MP.VARIANTS)
 @pytest.mark.parametrize("shape", [MP.SMALL, (2048, 1536, 512, 18, 1)],
                          ids=["small", "full-1step"])
 def test_mxu_peak_kernel_matches_ref(variant, shape, cuda):
-    M, K, W, S, steps = shape
-    A, X = MP.make_operands(np.random.default_rng(87), variant, M, K, W, S,
+    """The mma.sync kernel (csrc/mxu_peak.cu)."""
+    _probe_matches_ref(variant, shape, "mma_sync", cuda)
+
+
+@pytest.mark.parametrize("variant", MP.VARIANTS)
+@pytest.mark.parametrize("shape", [MP.SMALL, (2048, 1536, 512, 18, 1)],
+                         ids=["small", "full-1step"])
+def test_mxu_peak_wgmma_matches_ref(variant, shape, cuda):
+    """The wgmma kernel (csrc/mxu_peak_wgmma.cu), the wrapper's default."""
+    _probe_matches_ref(variant, shape, "wgmma", cuda)
+
+
+@pytest.mark.parametrize("shape", [(2048, 1536, 1024, 9, 1),
+                                   MP.K1_STEP[:4] + (1,)],
+                         ids=["w1024", "k1step"])
+def test_mxu_peak_wgmma_pure_at_probe_shapes(shape, cuda):
+    _probe_matches_ref("pure", shape, "wgmma", cuda, seed=92)
+
+
+def test_mxu_peak_wgmma_is_the_default(cuda):
+    A, X = MP.make_operands(np.random.default_rng(93), "pure", *MP.SMALL[:4],
                             cuda)
-    before = MP.mxu_peak_cuda.launches
-    got = MP.mxu_peak_cuda(A, MP.prepare_x(X), variant, steps)
-    want = MP.mxu_peak_ref(A, X, variant, steps)
-    torch.cuda.synchronize()
-    assert MP.mxu_peak_cuda.launches == before + 1
-    assert got.dtype == torch.int32 and torch.equal(got, want)
+    before = MP.mxu_peak_cuda.by_instruction["wgmma"]
+    MP.mxu_peak_cuda(A, MP.prepare_x(X), "pure", 1)
+    assert MP.mxu_peak_cuda.by_instruction["wgmma"] == before + 1
 
 
 def test_mxu_peak_kernel_rejects_bad_inputs(cuda):
@@ -157,13 +188,57 @@ def test_mxu_peak_kernel_rejects_bad_inputs(cuda):
                             2, cuda)
     Xt = MP.prepare_x(X)
     with pytest.raises(ValueError, match="multiples"):
-        MP.mxu_peak_cuda(A[:, :100].contiguous(), Xt, "pure", 1)
+        MP.mxu_peak_cuda(A[:, :100].contiguous(), Xt, "pure", 1, "mma_sync")
     with pytest.raises(ValueError, match="want"):
-        MP.mxu_peak_cuda(A, Xt, "bf16", 1)
+        MP.mxu_peak_cuda(A, Xt, "bf16", 1, "mma_sync")
     with pytest.raises(ValueError, match="write needs"):
         A3, X3 = MP.make_operands(np.random.default_rng(89), "write", 128,
                                   128, 64, 4, cuda)
-        MP.mxu_peak_cuda(A3, MP.prepare_x(X3), "write", 1)
+        MP.mxu_peak_cuda(A3, MP.prepare_x(X3), "write", 1, "mma_sync")
+
+
+def test_mxu_peak_wgmma_rejects_bad_inputs(cuda):
+    A, X = MP.make_operands(np.random.default_rng(94), "pure", 128, 128, 128,
+                            2, cuda)
+    Xt = MP.prepare_x(X)
+    before = MP.mxu_peak_cuda.launches
+    with pytest.raises(ValueError, match="CUDA device"):
+        MP.mxu_peak_cuda(A.cpu(), Xt, "pure", 1)
+    with pytest.raises(ValueError, match="want"):
+        MP.mxu_peak_cuda(A, Xt, "bf16", 1)
+    with pytest.raises(ValueError, match="want"):
+        MP.mxu_peak_cuda(A.to(torch.int32), Xt, "pure", 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        MP.mxu_peak_cuda(A.transpose(1, 2).contiguous().transpose(1, 2), Xt,
+                         "pure", 1)
+    # W = 64 is a multiple of the mma.sync tile, not of the wgmma one
+    with pytest.raises(ValueError, match="wgmma: M, W, K bytes must be "
+                                         "multiples"):
+        MP.mxu_peak_cuda(A, Xt[:, :64].contiguous(), "pure", 1)
+    with pytest.raises(ValueError, match="multiples"):
+        MP.mxu_peak_cuda(A[:, :100].contiguous(), Xt, "pure", 1)
+    with pytest.raises(ValueError, match="write needs"):
+        A4, X4 = MP.make_operands(np.random.default_rng(95), "write", 128,
+                                  128, 128, 4, cuda)
+        MP.mxu_peak_cuda(A4, MP.prepare_x(X4), "write", 1)
+    with pytest.raises(ValueError, match="instruction"):
+        MP.mxu_peak_cuda(A, Xt, "pure", 1, "mma")
+    assert MP.mxu_peak_cuda.launches == before
+
+
+def test_default_devices_run_a_nand_on_the_card(cuda):
+    """Context, encrypt_bits and prepare_keys default to the card: the
+    plain use, with no device given anywhere, runs and decrypts right."""
+    sk, ek = _keys(P.TINY, 96)
+    rng = np.random.default_rng(97)
+    ctx = Context(ek)
+    a = encrypt_bits([0, 1, 0, 1], sk, rng)
+    b = encrypt_bits([0, 0, 1, 1], sk, rng)
+    assert a.data.is_cuda and ctx.keys.device.type == "cuda"
+    assert TK.prepare_keys(ek).device.type == "cuda"
+    out = ctx.nand(a, b)
+    assert out.data.is_cuda
+    assert decrypt_bits(out, sk).tolist() == [1, 1, 1, 0]
 
 
 @pytest.mark.parametrize("params", [P.TINY, P.PALLAS_BG10, P.TINY_K2],

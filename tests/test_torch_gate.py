@@ -18,8 +18,8 @@ BITS1 = [0, 0, 1, 1]
 def setup(tiny_key):
     sk, ek = tiny_key
     rng = np.random.default_rng(90)
-    a = encrypt_bits(BITS0, sk, rng)
-    b = encrypt_bits(BITS1, sk, rng)
+    a = encrypt_bits(BITS0, sk, rng, device="cpu")
+    b = encrypt_bits(BITS1, sk, rng, device="cpu")
     return sk, ek, Context(ek, device="cpu"), JA.Context(ek), a, b
 
 
@@ -84,3 +84,17 @@ def test_unported_paths_raise(setup):
         ctx.nand(a, Ctxt(b.data[:2], 0))
     with pytest.raises(ValueError, match="share a level"):
         ctx.gate("nand", Ctxt(a.data, 1), b)
+
+
+@pytest.mark.parametrize("fn", ["Context", "encrypt_bits", "prepare_keys",
+                                "prepare_trgsw"])
+def test_public_entry_points_default_to_the_card(fn):
+    """Keys and ciphertexts land on the card unless the caller asks for
+    the CPU, so Context(ek).nand(encrypt_bits(x, sk), ...) needs no device
+    argument (the GPU tests run it)."""
+    import inspect
+
+    import cufhe_tpu_torch as T
+    from cufhe_tpu_torch.ops import keys as TK
+    obj = getattr(T, fn, None) or getattr(TK, fn)
+    assert inspect.signature(obj).parameters["device"].default == "cuda"

@@ -24,8 +24,8 @@ sk = G.keygen(T.TINY, seed=3)
 ek = G.make_eval_key(sk, seed=4)
 rng = np.random.default_rng(5)
 ctx = T.Context(ek, device="cpu")
-out = ctx.nand(T.encrypt_bits([0, 1, 0, 1], sk, rng),
-               T.encrypt_bits([0, 0, 1, 1], sk, rng))
+out = ctx.nand(T.encrypt_bits([0, 1, 0, 1], sk, rng, device="cpu"),
+               T.encrypt_bits([0, 0, 1, 1], sk, rng, device="cpu"))
 print(T.decrypt_bits(out, sk).tolist(), "jax" in sys.modules,
       "cufhe_tpu" in sys.modules)
 """

@@ -63,9 +63,65 @@ def test_ref_semantics():
                           X.numpy().transpose(0, 2, 1))
 
 
-def test_cuda_wrapper_rejects_cpu_tensors():
-    A, X = TM.make_operands(np.random.default_rng(4), "pure", 128, 128, 64, 3)
+@pytest.mark.parametrize("instruction", TM.INSTRUCTIONS)
+def test_cuda_wrapper_rejects_cpu_tensors(instruction):
+    A, X = TM.make_operands(np.random.default_rng(4), "pure", 128, 128, 128,
+                            3)
+    before = dict(TM.mxu_peak_cuda.by_instruction)
     with pytest.raises(ValueError, match="CUDA device"):
-        TM.mxu_peak_cuda(A, TM.prepare_x(X), "pure", 1)
+        TM.mxu_peak_cuda(A, TM.prepare_x(X), "pure", 1, instruction)
+    with pytest.raises(ValueError, match="instruction"):
+        TM.mxu_peak_cuda(A, TM.prepare_x(X), "pure", 1, "mma")
     with pytest.raises(ValueError, match="variant"):
         TM.mxu_peak_ref(A, X, "nope", 1)
+    assert TM.mxu_peak_cuda.by_instruction == before
+
+
+W1024 = (2048, 1536, 1024, 9, 32)
+PLAN_SHAPES = {"small": TM.SMALL, "w512": TM.FULL, "w1024": W1024,
+               "k1step": TM.K1_STEP}
+
+
+@pytest.mark.parametrize("variant", TM.VARIANTS)
+@pytest.mark.parametrize("shape", PLAN_SHAPES.values(), ids=PLAN_SHAPES)
+def test_wgmma_plan_covers_every_slice_once(variant, shape):
+    """Every output tile is summed over each (s, k-slice) pair of a step by
+    exactly one block of its split, and the grid covers the output."""
+    M, K, W, S, _ = shape
+    plan = TM.wgmma_plan(variant, M, K, W, S)
+    kb = K * (2 if variant == "bf16" else 1)
+    KT = kb // 128
+    assert plan["slices"] == S * KT
+    ranges = TM.split_ranges(plan["slices"], plan["split"])
+    pairs = [(j // KT, j % KT) for lo, hi in ranges for j in range(lo, hi)]
+    assert sorted(pairs) == [(s, kt) for s in range(S) for kt in range(KT)]
+    assert all(hi > lo for lo, hi in ranges)
+    gx, gy, gz = plan["grid"]
+    assert (gx * plan["bm"], gy * plan["bn"], gz) == (M, W, plan["split"])
+    assert plan["bm"] >= 128 and plan["bn"] >= 128
+    assert plan["bn"] == (128 if variant == "place" or W % 256 else 256)
+
+
+@pytest.mark.parametrize("name", ["w512", "k1step", "w1024"])
+def test_wgmma_plan_fills_the_card(name):
+    """At least 128 blocks at the probe's main shapes, and no more than one
+    wave where a split is needed to get there."""
+    M, K, W, S, _ = PLAN_SHAPES[name]
+    for v in TM.VARIANTS:
+        plan = TM.wgmma_plan(v, M, K, W, S)
+        blocks = plan["grid"][0] * plan["grid"][1] * plan["grid"][2]
+        assert blocks >= 128, (v, plan)
+        if plan["split"] > 1:
+            assert blocks <= TM.SMS
+    assert TM.wgmma_plan("pure", *TM.FULL[:4])["split"] == 4
+
+
+def test_wgmma_moves_fewer_bytes_into_shared_memory():
+    """The 128 x 256 tile halves the L2-to-shared-memory bytes of the
+    128 x 64 one: 21.7 GB -> 10.9 GB per pure-w512 launch."""
+    old = TM.smem_bytes("mma_sync", "pure", *TM.FULL)
+    new = TM.smem_bytes("wgmma", "pure", *TM.FULL)
+    assert old == 128 * 32 * 216 * 192 * 128
+    assert round(old / 1e9, 1) == 21.7 and round(new / 1e9, 1) == 10.9
+    assert 2 * TM.smem_bytes("wgmma", "pure", *TM.K1_STEP) == \
+        TM.smem_bytes("mma_sync", "pure", *TM.K1_STEP)

@@ -53,7 +53,8 @@ def _rows(fn, *cols):
 
 def test_encrypt_lvl1_matches_jax(setup):
     sk, ek, ctx, jctx = setup
-    ct = encrypt_bits(BITS0, sk, np.random.default_rng(5), level=1)
+    ct = encrypt_bits(BITS0, sk, np.random.default_rng(5), level=1,
+                      device="cpu")
     want = JA.encrypt_bits(BITS0, sk, np.random.default_rng(5), level=1)
     assert ct.level == 1 and ct.batch == 4
     assert ct.data.shape == (4, sk.params.lvl1.k * sk.params.lvl1.n + 1)
@@ -64,8 +65,8 @@ def test_encrypt_lvl1_matches_jax(setup):
 def test_gate_lvl1_all_ten(setup):
     sk, ek, ctx, jctx = setup
     rng = np.random.default_rng(91)
-    a = encrypt_bits(BITS0, sk, rng, level=1)
-    b = encrypt_bits(BITS1, sk, rng, level=1)
+    a = encrypt_bits(BITS0, sk, rng, level=1, device="cpu")
+    b = encrypt_bits(BITS1, sk, rng, level=1, device="cpu")
     for name in TWO_INPUT:
         out = ctx.gate(name, a, b)
         assert out.level == 1
@@ -121,9 +122,9 @@ def test_lvl1_key_switch_with_one_ksk(key, request):
 def test_mux_and_nmux(level, setup):
     sk, ek, ctx, jctx = setup
     rng = np.random.default_rng(93 + level)
-    c = encrypt_bits(BITSC, sk, rng, level=level)
-    a = encrypt_bits(BITS0, sk, rng, level=level)
-    b = encrypt_bits(BITS1, sk, rng, level=level)
+    c = encrypt_bits(BITSC, sk, rng, level=level, device="cpu")
+    a = encrypt_bits(BITS0, sk, rng, level=level, device="cpu")
+    b = encrypt_bits(BITS1, sk, rng, level=level, device="cpu")
     gold = G.mux_lvl0 if level == 0 else G.mux_lvl1
     for negate in (False, True):
         out = ctx.nmux(c, a, b) if negate else ctx.mux(c, a, b)
@@ -141,7 +142,8 @@ def test_mux_and_nmux(level, setup):
 def test_not_and_copy(setup):
     sk, ek, ctx, jctx = setup
     for level in (0, 1):
-        a = encrypt_bits(BITS0, sk, np.random.default_rng(95), level=level)
+        a = encrypt_bits(BITS0, sk, np.random.default_rng(95), level=level,
+                         device="cpu")
         got = ctx.not_(a)
         assert got.level == level
         assert np.array_equal(to_u32(got.data), _np(jctx.not_(_j(a)).data))
@@ -163,8 +165,8 @@ def test_gate_rows_matches_jax(level, setup):
     assert np.array_equal(to_u32(rows), jrows)
     rng = np.random.default_rng(96 + level)
     bits0, bits1 = rng.integers(0, 2, 20), rng.integers(0, 2, 20)
-    a = encrypt_bits(bits0, sk, rng, level=level)
-    b = encrypt_bits(bits1, sk, rng, level=level)
+    a = encrypt_bits(bits0, sk, rng, level=level, device="cpu")
+    b = encrypt_bits(bits1, sk, rng, level=level, device="cpu")
     out = ctx.gate_rows(rows, a, b)
     got = to_u32(out.data)
     assert np.array_equal(got, _np(jctx.gate_rows(jrows, _j(a), _j(b)).data))
@@ -181,8 +183,8 @@ def test_gate_rows_matches_jax(level, setup):
 def test_gate_chain_matches_jax_and_looped_gates(setup):
     sk, ek, ctx, jctx = setup
     rng = np.random.default_rng(98)
-    a = encrypt_bits(rng.integers(0, 2, 8), sk, rng)
-    b = encrypt_bits(rng.integers(0, 2, 8), sk, rng)
+    a = encrypt_bits(rng.integers(0, 2, 8), sk, rng, device="cpu")
+    b = encrypt_bits(rng.integers(0, 2, 8), sk, rng, device="cpu")
     mixed = ["nand", "xor", "andyn", "orny"]
     for names in (["nand"] * 3, mixed):
         cur = a
@@ -202,8 +204,8 @@ def test_gate_chain_lvl1_mixed(setup):
     sk, ek, ctx, jctx = setup
     rng = np.random.default_rng(99)
     bits0, bits1 = [0, 1, 1, 0], [1, 1, 0, 0]
-    a = encrypt_bits(bits0, sk, rng, level=1)
-    b = encrypt_bits(bits1, sk, rng, level=1)
+    a = encrypt_bits(bits0, sk, rng, level=1, device="cpu")
+    b = encrypt_bits(bits1, sk, rng, level=1, device="cpu")
     names = ["xor", "nand"]
     out = ctx.gate_chain(names, a, b)
     gold, want = to_u32(a.data), np.array(bits0)
@@ -251,7 +253,7 @@ def test_refresh_bootstrap_and_extract(setup, jkeys):
     assert ext.level == 0
     assert np.array_equal(to_u32(ext.data), _rows(
         lambda t: G.sei_and_ks(t, ek), want))
-    ct = encrypt_bits(BITS0, sk, rng)
+    ct = encrypt_bits(BITS0, sk, rng, device="cpu")
     for mu in (None, 1 << 28):
         b2t = ctx.bootstrap_tlwe2trlwe(ct, mu)
         m = lp.mu if mu is None else mu
@@ -270,7 +272,7 @@ def test_programmable_bootstrap(setup, jkeys):
     p = sk.params
     lp = p.lvl1
     rng = np.random.default_rng(102)
-    ct = encrypt_bits([0, 1, 1], sk, rng)
+    ct = encrypt_bits([0, 1, 1], sk, rng, device="cpu")
     cts = to_u32(ct.data)
     tv = rng.integers(0, _MOD, lp.n, dtype=np.uint64).astype(np.uint32)
     got = ctx.programmable_bootstrap(ct, tv)
@@ -333,8 +335,8 @@ def test_pbs_many(theta, key, request):
 def test_context_checks(setup):
     sk, ek, ctx, jctx = setup
     rng = np.random.default_rng(105)
-    a = encrypt_bits(BITS0, sk, rng)
-    b1 = encrypt_bits(BITS1, sk, rng, level=1)
+    a = encrypt_bits(BITS0, sk, rng, device="cpu")
+    b1 = encrypt_bits(BITS1, sk, rng, level=1, device="cpu")
     with pytest.raises(ValueError, match="share a level"):
         ctx.gate("nand", a, b1)
     with pytest.raises(ValueError, match="share a level"):

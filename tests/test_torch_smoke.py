@@ -56,3 +56,34 @@ def test_rotation_work_counts_sub_digit_rows_and_components(params):
     macs, _ = smoke.rotation_work(params, 3)
     assert macs == 3 * ((lp.k + 1) * lp.l * nd * lp.n) \
         * ((lp.k + 1) * 4 * lp.n) * params.n0
+
+
+_WGMMA_LOG = """\
+ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__d51f194e_17_mxu_peak_wgmma_cu_6f77326921mxu_peak_wgmma_kernelILi2ELi256EEEv14CUtensorMap_stS1_PKhPiiiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN50_GLOBAL__N__d51f194e_17_mxu_peak_wgmma_cu_6f77326921mxu_peak_wgmma_kernelILi2ELi256EEEv14CUtensorMap_stS1_PKhPiiiiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 2 barriers
+ptxas warning : (C7508) setmaxnreg ignored; unable to determine register count at entry
+ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__d51f194e_17_mxu_peak_wgmma_cu_6f77326921mxu_peak_wgmma_kernelILi1ELi128EEEv14CUtensorMap_stS1_PKhPiiiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN50_GLOBAL__N__d51f194e_17_mxu_peak_wgmma_cu_6f77326921mxu_peak_wgmma_kernelILi1ELi128EEEv14CUtensorMap_stS1_PKhPiiiiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+nvcc warning : Support for offline compilation for architectures prior to '<compute/sm/lto>_75' will be removed in a future release
+"""
+
+
+def test_ptxas_report_names_both_template_arguments():
+    """The wgmma probe kernel is a template of (variant, BN): both show."""
+    assert smoke.ptxas_report(_WGMMA_LOG) == [
+        ("mxu_peak_wgmma_kernel<2, 256>", 168,
+         "0 bytes spill stores, 0 bytes spill loads"),
+        ("mxu_peak_wgmma_kernel<1, 128>", 168,
+         "0 bytes spill stores, 0 bytes spill loads")]
+
+
+def test_ptxas_warnings_finds_ignored_setmaxnreg():
+    """Phase 2 fails on C7508; nvcc's own warnings are not ptxas's."""
+    assert smoke.ptxas_warnings(_WGMMA_LOG) == [
+        "ptxas warning : (C7508) setmaxnreg ignored; unable to determine "
+        "register count at entry"]
+    assert smoke.ptxas_warnings(_LOG) == []
