@@ -10,7 +10,8 @@ Phases, each raising on failure:
      a missing kernel or ptxas's C7508 warning, setmaxnreg ignored, fails
      the phase);
   3. the blind-rotation kernel against its plain PyTorch version, bit for
-     bit, on random accumulators (8 and 129 rows) at five parameter sets;
+     bit, on random accumulators (8 and 129 rows) at ten parameter sets,
+     every published preset among them;
   4. Context(ek, "cuda").nand on the four input pairs at tfhepp_128bit
      against the port's NumPy gate oracle golden.gate_lvl0, as uint32;
   5. the main path: encrypt -> a chain of lvl0 NANDs on device-resident
@@ -36,7 +37,24 @@ Phases, each raising on failure:
      launch per blind rotation; gates/s of the lvl1 NAND and the mux;
  10. one lvl0 NAND at batch 4096 under torch.profiler: device time and
      launches of the product kernel, rotdec_kernel and the key switch, and
-     the device's idle share.
+     the device's idle share;
+ 11. every other published preset (tfhepp_128bit_bg8, tfhepp_80bit,
+     cggi19, concrete, radix4_2048; phase 3 holds the kernel against its
+     plain version there): a lvl0 NAND at batch 4096 with 0 decrypt
+     errors, golden equality on one row (worker processes), one launch;
+     gates/s;
+ 12. circuits at tfhepp_128bit through runtime.run_schedule: an 8-bit
+     ripple adder equal as uint32 to the same gates called one by one on
+     the Context, and AES-128 at batch 8 with every block checked against
+     the plaintext cipher, launches equal to the plan; blocks/s, effective
+     bootstraps/s, peak device memory;
+ 13. streams: dependent NAND chains interleaved on two runtime.Streams and
+     the default stream with no explicit synchronise, equal as uint32 to
+     the same chain on the default stream alone; per-gate latency at
+     batch 1 over a 20-deep chain, and one such gate under torch.profiler;
+ 14. the key lifecycle: release_keys frees the key bytes (memory_allocated),
+     a gate then raises ValueError, prepare_backend restores them and the
+     gate is bit-exact again, reinitialize to concrete runs a correct NAND.
 
 Prints the card line, a {"kernels": [...]} line, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -71,6 +89,15 @@ WORKERS = 6
 #: the device of phases 8 and 9
 DEV = "cuda"
 MIXED = ("nand", "xor", "andyn", "orny")
+#: phase 11's presets (phase 3 also holds the kernel to its plain version
+#: at each)
+FULL_PRESETS = ("tfhepp_128bit_bg8", "tfhepp_80bit", "cggi19", "concrete",
+                "radix4_2048")
+#: phase 12's AES batch and phase 13's stream chains
+AES_BATCH = 8
+STREAM_BATCH = 256
+STREAM_DEPTH = 6
+LATENCY_DEPTH = 20
 
 
 def log(msg: str) -> None:
@@ -197,6 +224,291 @@ def _g_b2t_refresh(ct):
     tr = G.bootstrap_tlwe2trlwe(ct, _EK.params.lvl1.mu, _EK)
     rf = G.refresh(tr, _EK)
     return tr, rf, G.sei_and_ks(rf, _EK)
+
+
+def _g_nand_with(ek, x, y):
+    """One lvl0 NAND row under an eval key of its own (phase 11)."""
+    from cufhe_tpu_torch import golden as G
+    return G.gate_lvl0("nand", x, y, ek)
+
+
+def timed(what: str, rotations: int, fn):
+    """fn() with the blind-rotation launch count zeroed just before and
+    read just after, on the host clock to a synchronise; raises unless
+    the kernel was launched `rotations` times. Returns (out, seconds)."""
+    import torch
+    from cufhe_tpu_torch.ops import blind_rotate as BR
+    torch.cuda.synchronize()
+    BR.blind_rotate_cuda.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if BR.blind_rotate_cuda.launches != rotations:
+        raise AssertionError(f"{what}: {BR.blind_rotate_cuda.launches} "
+                             f"kernel launches, want {rotations}")
+    return out, dt
+
+
+def phase_presets(eks: dict, tag: str) -> dict:
+    """11. A lvl0 NAND at batch 4096 at each of FULL_PRESETS: 0 decrypt
+    errors, row 0 equal to golden (worker processes, while the card
+    works), one launch per gate; gates/s over two reps. Each context's
+    keys are released before the next preset's are prepared."""
+    import numpy as np
+    import torch
+    import cufhe_tpu_torch as T
+    from cufhe_tpu_torch import golden as G
+    from cufhe_tpu_torch.torus import from_u32, to_u32
+
+    rng = np.random.default_rng(14)
+    inputs, gold, row0, rates = {}, {}, {}, {}
+    spawn = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(len(FULL_PRESETS), mp_context=spawn) as pool:
+        for name in FULL_PRESETS:
+            sk, ek = eks[name]
+            bits = [rng.integers(0, 2, BATCH) for _ in range(2)]
+            host = [G.encrypt_bit_batch(b, sk, rng) for b in bits]
+            inputs[name] = (bits, host)
+            gold[name] = pool.submit(_g_nand_with, ek, host[0][0],
+                                     host[1][0])
+        for name in FULL_PRESETS:
+            sk, ek = eks[name]
+            (bits0, bits1), (h0, h1) = inputs[name]
+            ctx = T.Context(ek)
+            a, b = (T.Ctxt(from_u32(h, DEV), 0) for h in (h0, h1))
+            torch.cuda.reset_peak_memory_stats()
+            out, dt = timed(f"nand at {name}", 1, lambda: ctx.nand(a, b))
+            _, dt2 = timed(f"nand at {name}", 1, lambda: ctx.nand(a, b))
+            errors = int(np.sum(T.decrypt_bits(out, sk)
+                                != 1 - (bits0 & bits1)))
+            rates[name] = BATCH / statistics.median((dt, dt2))
+            macs, nbytes = rotation_work(ek.params, BATCH)
+            bound_ms, bound_by = bound(2 * macs, nbytes)
+            gate_ms = 1e3 * BATCH / rates[name]
+            log(f"preset {name}: lvl0 nand at batch {BATCH}, decrypt errors "
+                f"{errors}, 1 kernel launch per gate; {rates[name]:.2f} "
+                f"gates/s (reps {dt * 1e3:.1f}, {dt2 * 1e3:.1f} ms per batch;"
+                f" {macs / gate_ms / 1e9:.1f} int8 TMAC/s over the gate, "
+                f"rotation bound {bound_ms:.1f} ms ({bound_by}), "
+                f"{100 * bound_ms / gate_ms:.1f} % of it), peak memory "
+                f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB {tag}")
+            if errors:
+                raise AssertionError(f"nand at {name}: {errors} decrypt "
+                                     f"errors")
+            row0[name] = to_u32(out.data[:1])[0]
+            ctx.release_keys()
+            del ctx, a, b, out
+        t0 = time.perf_counter()
+        for name in FULL_PRESETS:
+            if not np.array_equal(row0[name], gold[name].result()):
+                raise AssertionError(f"nand at {name}: row 0 disagrees with "
+                                     f"golden")
+    log(f"presets {', '.join(FULL_PRESETS)}: row 0 of each nand equal to "
+        f"golden.gate_lvl0 as uint32 (waited {time.perf_counter() - t0:.1f}"
+        f" s for the workers)")
+    return rates
+
+
+def phase_circuits(ctx, sk, gate_rate: float, tag: str) -> None:
+    """12. runtime.run_schedule at tfhepp_128bit: an 8-bit ripple adder
+    equal as uint32 to its gates called one by one on the Context, then
+    AES-128 at AES_BATCH with every block checked; launches equal to the
+    plan's rotations."""
+    import numpy as np
+    import torch
+    import cufhe_tpu_torch as T
+    from cufhe_tpu_torch.benchmarks import aes
+    from cufhe_tpu_torch.runtime import build_ripple_adder, run_schedule
+    from cufhe_tpu_torch.runtime import executor as EX
+
+    nbits, batch = 8, STREAM_BATCH
+    sched = build_ripple_adder(nbits)[0].compile()
+    rng = np.random.default_rng(15)
+    x, y = (rng.integers(0, 1 << nbits, batch) for _ in range(2))
+    cin = rng.integers(0, 2, batch)
+    bits = ([(x >> i) & 1 for i in range(nbits)]
+            + [(y >> i) & 1 for i in range(nbits)] + [cin])
+    cts = [T.encrypt_bits(b, sk, rng) for b in bits]
+    planned = EX.plan_rotations(EX.schedule_steps(ctx, sched, batch))
+    torch.cuda.reset_peak_memory_stats()
+    outs, dt = timed("ripple adder", planned,
+                     lambda: run_schedule(ctx, sched, cts))
+    vals = dict(zip(sched.inputs, cts))
+    for groups in sched.levels:
+        for op, quads in groups:
+            for q in quads:
+                vals[q[0]] = ctx.gate(op, vals[q[1]], vals[q[2]])
+    for w, o in zip(sched.outputs, outs):
+        if not torch.equal(o.data, vals[w].data):
+            raise AssertionError("run_schedule differs from the gates "
+                                 "called one by one")
+    got = sum(T.decrypt_bits(o, sk).astype(np.int64) << i
+              for i, o in enumerate(outs))
+    errors = int(np.sum(got != x + y + cin))
+    log(f"{nbits}-bit ripple adder through run_schedule at batch {batch}: "
+        f"{sched.num_gates} gates, {sched.num_levels} levels, {planned} "
+        f"kernel launches, {dt * 1e3:.1f} ms, equal as uint32 to the "
+        f"{sched.num_gates} gates called one by one, sum errors {errors}, "
+        f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB {tag}")
+    if errors:
+        raise AssertionError(f"ripple adder: {errors} wrong sums")
+
+    rec = aes.run(ctx, sk, AES_BATCH)
+    log(f"AES-128 through run_schedule at batch {AES_BATCH}, "
+        f"{ctx.params.name}: {rec['gates']} gates, {rec['levels']} levels, "
+        f"{rec['steps']} steps, block errors {rec['block_errors']}, "
+        f"{rec['rotation_launches']} kernel launches (plan "
+        f"{rec['planned_rotations']}); {rec['seconds']:.2f} s, "
+        f"{rec['blocks_per_sec']:.4f} blocks/s, "
+        f"{rec['bootstraps_per_sec']:.2f} effective bootstraps/s "
+        f"({100 * rec['bootstraps_per_sec'] / gate_rate:.1f} % of phase 5's "
+        f"gate rate), peak memory {rec['peak_memory_gb']:.2f} GB, schedule "
+        f"built in {rec['schedule_seconds']:.2f} s {tag}")
+    if rec["block_errors"] or \
+            rec["rotation_launches"] != rec["planned_rotations"]:
+        raise AssertionError("AES-128 failed its checks")
+
+
+def phase_streams(ctx, sk, tag: str) -> None:
+    """13. Dependent NAND chains interleaved on two Streams, one chain's
+    outputs feeding the other stream and then the default stream, with no
+    explicit synchronise: equal as uint32 to the same gates on the default
+    stream alone; then the per-gate latency at batch 1."""
+    import numpy as np
+    import torch
+    import cufhe_tpu_torch as T
+    from cufhe_tpu_torch.ops import blind_rotate as BR
+    from cufhe_tpu_torch.runtime import Stream, synchronize
+
+    rng = np.random.default_rng(16)
+    bits = [rng.integers(0, 2, STREAM_BATCH) for _ in range(3)]
+    a, b, c = (T.encrypt_bits(x, sk, rng) for x in bits)
+    s1, s2 = Stream(), Stream()
+
+    def chains(st1, st2):
+        x, y = a, c
+        outs = []
+        for _ in range(STREAM_DEPTH):
+            x = ctx.nand(x, b, stream=st1)
+            y = ctx.nand(y, x, stream=st2)       # reads st1's output
+            z = ctx.nand(y, x)                   # default stream
+            outs += [x, y, z]
+        return outs
+
+    gates = 3 * STREAM_DEPTH
+    torch.cuda.synchronize()
+    BR.blind_rotate_cuda.launches = 0
+    t0 = time.perf_counter()
+    streamed = chains(s1, s2)
+    polls = 0
+    while not (s1.query() and s2.query()
+               and torch.cuda.current_stream().query()):
+        polls += 1
+        if time.perf_counter() - t0 > 120:
+            raise AssertionError("Stream.query() never turned true")
+    dt = time.perf_counter() - t0
+    launched = BR.blind_rotate_cuda.launches
+    if launched != gates:
+        raise AssertionError(f"stream chains: {launched} kernel launches, "
+                             f"want {gates}")
+    plain, dt0 = timed("default-stream chains", gates,
+                       lambda: chains(None, None))
+    for got, want in zip(streamed, plain):
+        if not torch.equal(got.data, want.data):
+            raise AssertionError("cross-stream chain differs from the "
+                                 "default stream")
+    x, y = bits[0], bits[2]
+    for _ in range(STREAM_DEPTH):
+        x = 1 - (x & bits[1])
+        y = 1 - (y & x)
+    z = 1 - (y & x)
+    if not np.array_equal(T.decrypt_bits(streamed[-1], sk), z):
+        raise AssertionError("cross-stream chain decrypts wrong")
+    log(f"streams: {STREAM_DEPTH} rounds of nand on two Streams and the "
+        f"default stream at batch {STREAM_BATCH} ({gates} gates, {launched} "
+        f"kernel launches), no explicit synchronise: query() turned true "
+        f"after {polls} polls, {dt * 1e3:.1f} ms (default stream alone "
+        f"{dt0 * 1e3:.1f} ms); equal as uint32 to the default stream alone "
+        f"{tag}")
+
+    one = [T.encrypt_bits(rng.integers(0, 2, 1), sk, rng) for _ in range(2)]
+    st = Stream()
+
+    def chain():
+        out = one[0]
+        for _ in range(LATENCY_DEPTH):
+            out = ctx.nand(out, one[1], stream=st)
+        synchronize(st)
+        return out
+
+    chain()
+    _, dt = timed("latency chain", LATENCY_DEPTH, chain)
+    log(f"latency: {LATENCY_DEPTH}-deep dependent nand chain at batch 1 on a "
+        f"Stream, {ctx.params.name}: {dt / LATENCY_DEPTH * 1e3:.2f} ms per "
+        f"gate (host clock, one synchronise) {tag}")
+    per, busy, wall = profile_kernels(lambda: ctx.nand(*one))
+    prod = sum(ms for name, (ms, _) in per.items() if "extprod" in name)
+    rot = sum(ms for name, (ms, _) in per.items() if "rotdec" in name)
+    log(f"  one nand at batch 1 under torch.profiler: host {wall:.2f} ms, "
+        f"device busy {busy:.2f} ms (idle {100 * (1 - busy / wall):.2f} %): "
+        f"extprod_kernel {prod:.2f} ms, rotdec_kernel {rot:.2f} ms, "
+        f"{sum(n for _, n in per.values())} kernels {tag}")
+
+
+def phase_lifecycle(ctx, sk, ek, concrete, tag: str) -> None:
+    """14. release_keys frees the key bytes, a gate then raises ValueError,
+    prepare_backend restores them bit-exactly, reinitialize swaps to
+    concrete."""
+    import numpy as np
+    import torch
+    import cufhe_tpu_torch as T
+
+    rng = np.random.default_rng(17)
+    bits0, bits1 = (rng.integers(0, 2, 64) for _ in range(2))
+    a, b = (T.encrypt_bits(x, sk, rng) for x in (bits0, bits1))
+    before, _ = timed("nand before release", 1, lambda: ctx.nand(a, b))
+    sizes = {f: t.numel() * t.element_size()
+             for f, t in vars(ctx.keys).items()}
+    key_bytes = sum(sizes.values())
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    ctx.release_keys()
+    freed = held - torch.cuda.memory_allocated()
+    try:
+        ctx.nand(a, b)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("a gate on released keys did not raise")
+    if "release_keys" not in refused:
+        raise AssertionError(f"the refusal does not name release_keys: "
+                             f"{refused}")
+    low = torch.cuda.memory_allocated()
+    ctx.prepare_backend(ek)
+    torch.cuda.synchronize()
+    restored = torch.cuda.memory_allocated() - low
+    after, _ = timed("nand after prepare_backend", 1, lambda: ctx.nand(a, b))
+    log(f"lifecycle at {ctx.params.name}: release_keys freed "
+        f"{freed / 1e6:.1f} MB of device memory (keys "
+        f"{', '.join(f'{k} {v / 1e6:.1f} MB' for k, v in sizes.items())}), "
+        f"prepare_backend took back {restored / 1e6:.1f} MB; a gate between "
+        f"raised ValueError naming release_keys {tag}")
+    if freed < key_bytes or restored < key_bytes:
+        raise AssertionError("release_keys/prepare_backend did not free and "
+                             "restore the key memory")
+    if not torch.equal(after.data, before.data):
+        raise AssertionError("the gate after prepare_backend differs")
+    csk, cek = concrete
+    ctx.reinitialize(cek)
+    x, y = (T.encrypt_bits(v, csk, rng) for v in (bits0, bits1))
+    out, _ = timed("nand after reinitialize", 1, lambda: ctx.nand(x, y))
+    errors = int(np.sum(T.decrypt_bits(out, csk) != 1 - (bits0 & bits1)))
+    log(f"reinitialize to {ctx.params.name}: nand at batch 64, decrypt "
+        f"errors {errors}; the gate after prepare_backend is bit-exact to "
+        f"the one before release_keys")
+    if errors:
+        raise AssertionError("nand after reinitialize decrypts wrong")
 
 
 def phase_probe(info: dict, tag: str) -> dict:
@@ -363,7 +675,6 @@ def phase_full_width(ctx, sk, ek, tag: str) -> None:
     import cufhe_tpu_torch as T
     from cufhe_tpu_torch import golden as G
     from cufhe_tpu_torch.models.gates import TWO_INPUT
-    from cufhe_tpu_torch.ops import blind_rotate as BR
     from cufhe_tpu_torch.ops import bootstrap as B
     from cufhe_tpu_torch.ops.keyswitch import key_switch
     from cufhe_tpu_torch.torus import from_u32, to_u32
@@ -384,18 +695,9 @@ def phase_full_width(ctx, sk, ek, tag: str) -> None:
                   (1 << 32) - lp.mu).astype(np.uint32)
 
     def run(what, rotations, fn):
-        torch.cuda.synchronize()
-        BR.blind_rotate_cuda.launches = 0
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        launched = BR.blind_rotate_cuda.launches
+        out, dt = timed(what, rotations, fn)
         log(f"{what} at batch {BATCH}: {dt * 1e3:.1f} ms (host clock), "
-            f"{launched} blind-rotation launches {tag}")
-        if launched != rotations:
-            raise AssertionError(f"{what}: {launched} kernel launches, "
-                                 f"want {rotations}")
+            f"{rotations} blind-rotation launches {tag}")
         return out, dt
 
     def decrypt_errors(what, ct, want) -> None:
@@ -501,15 +803,44 @@ def phase_full_width(ctx, sk, ek, tag: str) -> None:
             f"{time.perf_counter() - t0:.1f} s for the workers)")
 
 
+def profile_kernels(fn):
+    """fn() under torch.profiler: ({kernel name: [device ms, launches]},
+    device busy ms (the union of the kernels' spans), host ms to a
+    synchronise)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    per, spans = {}, []
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            row = per.setdefault(e.name, [0.0, 0])
+            row[0] += e.device_time_total / 1e3
+            row[1] += 1
+            spans.append((e.time_range.start, e.time_range.end))
+    busy, end = 0.0, None
+    for s, t in sorted(spans):
+        if end is None or s > end:
+            busy += t - s
+            end = t
+        elif t > end:
+            busy += t - end
+            end = t
+    return per, busy / 1e3, wall
+
+
 def phase_profile(ctx, sk, tag: str) -> None:
     """10. One lvl0 NAND at batch 4096 under torch.profiler: device time
     and launches of the product kernel, of rotdec_kernel and of the key
     switch (the kernels key_switch launches when profiled alone at the
     gate's shape), and the device's idle share over the gate."""
     import numpy as np
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     import cufhe_tpu_torch as T
     from cufhe_tpu_torch.ops.keyswitch import key_switch
     from cufhe_tpu_torch.ops.poly import sample_extract_for_ks
@@ -521,35 +852,9 @@ def phase_profile(ctx, sk, tag: str) -> None:
     acc, _ = random_rotation_inputs(params, BATCH, 13, DEV)
     tlwe1 = sample_extract_for_ks(acc, params.lvl1)
 
-    def kernels(fn):
-        """{kernel name: [ms, launches]}, device busy ms, host ms."""
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        per, spans = {}, []
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                row = per.setdefault(e.name, [0.0, 0])
-                row[0] += e.device_time_total / 1e3
-                row[1] += 1
-                spans.append((e.time_range.start, e.time_range.end))
-        busy, end = 0.0, None
-        for s, t in sorted(spans):
-            if end is None or s > end:
-                busy += t - s
-                end = t
-            elif t > end:
-                busy += t - end
-                end = t
-        return per, busy / 1e3, wall
-
-    ks, ks_busy, _ = kernels(lambda: key_switch(tlwe1, ctx.keys.ksk_limbs_sei,
-                                                params))
-    per, busy, wall = kernels(lambda: ctx.nand(a, b))
+    ks, ks_busy, _ = profile_kernels(
+        lambda: key_switch(tlwe1, ctx.keys.ksk_limbs_sei, params))
+    per, busy, wall = profile_kernels(lambda: ctx.nand(a, b))
     if not per:
         raise AssertionError("torch.profiler recorded no device kernels")
     groups = {"product (extprod_kernel)": [0.0, 0],
@@ -580,6 +885,7 @@ def phase_profile(ctx, sk, tag: str) -> None:
 
 
 def main() -> int:
+    started = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -621,10 +927,10 @@ def main() -> int:
         if "C7508" in line:
             raise AssertionError("ptxas ignored setmaxnreg (C7508)")
 
-    # 3. kernel vs plain version at five parameter sets, 8 and 129 rows
+    # 3. kernel vs plain version at ten parameter sets, 8 and 129 rows
     max_err = 0
     presets = (T.PALLAS_TINY, T.PALLAS_TINY_K2, T.PALLAS_BG10, T.TINY,
-               T.TFHEPP_128)
+               T.TFHEPP_128, *(T.PRESETS[name] for name in FULL_PRESETS))
     eks = {}
     for i, params in enumerate(presets):
         sk = G.keygen(params, seed=100 + i)
@@ -679,6 +985,7 @@ def main() -> int:
     gates = 1 + ITERS * REPS
     errors = int(np.sum(bits != expected_nand_chain(bits0, bits1, gates)))
     dt = statistics.median(times)
+    gate_rate = BATCH / dt
     log(f"main path: {gates} chained NANDs at batch {BATCH}, "
         f"{T.TFHEPP_128.name}: decrypt errors {errors}, kernel launches "
         f"{launches}; {BATCH / dt:.2f} gates/s ({dt * 1e3:.1f} ms per "
@@ -721,10 +1028,17 @@ def main() -> int:
     phase_tiny_paths()
     phase_full_width(ctx, sk, ek, tag)
     phase_profile(ctx, sk, tag)
+    # 11.-14. the presets, circuits, streams and the key lifecycle
+    phase_presets(eks, tag)
+    phase_circuits(ctx, sk, gate_rate, tag)
+    phase_streams(ctx, sk, tag)
+    phase_lifecycle(ctx, sk, ek, eks["concrete"], tag)
 
     for mod in ("jax", "cufhe_tpu"):
         if mod in sys.modules:
             raise AssertionError(f"{mod} was imported")
+    log(f"chip_smoke: every phase passed in {time.perf_counter() - started:.1f}"
+        f" s (host clock) {tag}")
     log(json.dumps({"kernels": [
         {"name": "blind_rotate", "route": "cuda", "source": SOURCE,
          "replaces": REPLACES, "launches": launches, "max_abs_err": max_err,

@@ -6,6 +6,10 @@ interface, loaded with ctypes. The build happens at first use, into
 _build/<hash of sources and flags>/ beside this file, and is reused while
 the sources are unchanged. Without nvcc, or when the build fails, load()
 raises: there is no fallback.
+
+load_host() does the same for the host-side circuit scheduler
+(runtime/_native/circuit.cpp), with g++ and no CUDA, into
+_build/host-<hash>/: the CPU tests use it too.
 """
 from __future__ import annotations
 
@@ -22,8 +26,12 @@ BUILD_DIR = _PKG / "_build"
 LIB_NAME = "libcufhe_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+HOST_SRC = _PKG / "runtime" / "_native" / "circuit.cpp"
+HOST_LIB_NAME = "libcufhe_circuit.so"
+GXX_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC"]
 
 _lib = None
+_host_lib = None
 
 
 def _sources() -> list[Path]:
@@ -114,3 +122,42 @@ def load() -> ctypes.CDLL:
         lib.cufhe_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def host_build_dir() -> Path:
+    """The directory this tree's host scheduler builds into."""
+    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+    h.update(HOST_SRC.read_bytes())
+    return BUILD_DIR / f"host-{h.hexdigest()[:16]}"
+
+
+def build_host() -> Path:
+    """Compile the circuit scheduler with g++ if this tree has no build of
+    it yet; return the library's path. Raises if g++ is missing or fails."""
+    out_dir = host_build_dir()
+    lib = out_dir / HOST_LIB_NAME
+    if lib.exists():
+        return lib
+    cxx = shutil.which(os.environ.get("CXX", "g++"))
+    if cxx is None:
+        raise RuntimeError("g++ not found: the circuit scheduler of "
+                           "cufhe_tpu_torch is built from "
+                           "runtime/_native/circuit.cpp at first use")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"{HOST_LIB_NAME}.{os.getpid()}.tmp"
+    cmd = [cxx, *GXX_FLAGS, str(HOST_SRC), "-o", str(tmp)]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"g++ failed ({proc.returncode}): "
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib)           # atomic: concurrent builds agree
+    return lib
+
+
+def load_host() -> ctypes.CDLL:
+    """Build if needed and load the circuit scheduler (once per process)."""
+    global _host_lib
+    if _host_lib is None:
+        _host_lib = ctypes.CDLL(str(build_host()))
+    return _host_lib

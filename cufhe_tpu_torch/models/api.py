@@ -5,9 +5,18 @@ one explicit torch device; ciphertexts stay there between gates, and move
 to the host only at decrypt. Every method runs eagerly: what the JAX
 package compiles into one program (gate_chain's scan) is a Python loop of
 the same ops here, bit-identical to the separate calls.
+
+Streams (runtime.stream.Stream, the reference's cuFHE stream model): a
+method given stream= runs on that stream's device and CUDA stream, with
+the keys for that device. Every ciphertext made on a CUDA device carries a
+ready event recorded after the work that made it, and every consumer (a
+gate on any stream, decrypt_bits) waits for it first, so chaining across
+streams needs no explicit synchronise. A Ctxt without an event is taken to
+have been made on the caller's current stream.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional, Sequence
 
@@ -27,6 +36,8 @@ class Ctxt:
     """A batch of TLWE ciphertexts at one level."""
     data: torch.Tensor  # [B, dim+1] int32 (uint32 bits)
     level: int          # 0 (lvl0) or 1 (lvl1 domain)
+    #: recorded on the CUDA stream that made `data`, after that work
+    ready: Optional[torch.cuda.Event] = None
 
     @property
     def batch(self) -> int:
@@ -46,19 +57,26 @@ def encrypt_bits(bits: Sequence[int], sk: G.SecretKey,
     side, NumPy), by default the card, where Context keeps its keys.
     rng=None draws from the OS CSPRNG; pass a seeded Generator only for
     reproducible tests."""
-    return Ctxt(from_u32(G.encrypt_bit_batch(bits, sk, rng, level=level),
-                         device), level)
+    data = from_u32(G.encrypt_bit_batch(bits, sk, rng, level=level), device)
+    return Ctxt(data, level, _ready_event(data))
 
 
 def decrypt_bits(ct: Ctxt, sk: G.SecretKey) -> np.ndarray:
-    """Decrypt a ciphertext batch to a bit array (client side)."""
+    """Decrypt a ciphertext batch to a bit array (client side), after the
+    work that made it."""
+    if ct.ready is not None:
+        torch.cuda.current_stream(ct.data.device).wait_event(ct.ready)
     return G.decrypt_bit_batch(to_u32(ct.data), sk, level=ct.level)
 
 
-def _no_stream(stream) -> None:
-    if stream is not None:
-        raise NotImplementedError("streams are not ported yet "
-                                  "(ROADMAP queue 1 item 10)")
+def _ready_event(t: torch.Tensor) -> Optional[torch.cuda.Event]:
+    """An event recorded on the current stream of t's device, or None on
+    the CPU."""
+    if t.device.type != "cuda":
+        return None
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(t.device))
+    return ev
 
 
 class Context:
@@ -69,6 +87,12 @@ class Context:
     CPU tensors through its plain PyTorch version.
     """
 
+    #: DeviceKeys fields of each key form, the unit of release_keys and
+    #: prepare_backend: "pallas" is the blind rotation's key (the port's one
+    #: form of it), "ksk" every key switch's
+    _BACKEND_KEY_FIELDS = {"pallas": ("bk_ext",),
+                           "ksk": ("ksk_limbs_sei", "sei_perm")}
+
     def __init__(self, ek: G.EvalKey, device="cuda", mesh=None):
         if mesh is not None:
             raise NotImplementedError("multi-device meshes are not ported "
@@ -76,8 +100,144 @@ class Context:
         self.params: GateParams = ek.params
         self.keys = K.prepare_keys(ek, torch.device(device))
         self.device = self.keys.device      # "cuda" resolved to "cuda:0"
+        self._dev_keys = {}
 
-    def _on_device(self, *cts) -> None:
+    # -- key lifecycle ------------------------------------------------------
+    @classmethod
+    def _key_form(cls, backend: str) -> str:
+        if backend == "ntt":
+            raise NotImplementedError("the ntt backend is not ported yet "
+                                      "(ROADMAP queue 1 item 15)")
+        if backend not in cls._BACKEND_KEY_FIELDS:
+            raise ValueError(f"unknown backend {backend!r}; the port's key "
+                             f"forms are {sorted(cls._BACKEND_KEY_FIELDS)}")
+        return backend
+
+    def release_keys(self, backends: Optional[Sequence[str]] = None) -> None:
+        """Free device key material now (the DeleteBootstrappingKeyNTT /
+        DeleteKeySwitchingKey analogue, bootstrap_gpu.cuh:50-165,
+        keyswitch_gpu.cuh:190-196): a long-lived server swapping presets
+        must not hold two key sets.
+
+        backends=None frees every key; ("pallas",) frees the blind
+        rotation's key, ("ksk",) the key switch's. Work already enqueued is
+        waited for first, and the caching allocator hands the memory back
+        to the device. Gates raise ValueError until prepare_backend restores
+        the keys."""
+        names = (self._BACKEND_KEY_FIELDS if backends is None
+                 else [self._key_form(b) for b in backends])
+        fields = {f for b in names for f in self._BACKEND_KEY_FIELDS[b]}
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._dev_keys = {}
+        self.keys = dataclasses.replace(self.keys, **{
+            f: getattr(self.keys, f).new_empty((0,)) for f in fields})
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def prepare_backend(self, ek: G.EvalKey, backend: str = "auto") -> None:
+        """(Re-)build one key form from the host EvalKey on the context's
+        device ("auto" and "pallas": the blind rotation's key), and the key
+        switch's too if a release dropped it: the inverse of
+        release_keys."""
+        if ek.params != self.params:
+            raise ValueError(f"eval key is for {ek.params.name}, the context "
+                             f"for {self.params.name}; use reinitialize")
+        form = self._key_form("pallas" if backend == "auto" else backend)
+        fields = set(self._BACKEND_KEY_FIELDS[form])
+        if not self.keys.ksk_limbs_sei.numel():
+            fields |= set(self._BACKEND_KEY_FIELDS["ksk"])
+        self.keys = dataclasses.replace(
+            self.keys, **K.prepare_fields(ek, fields, self.device))
+        self._dev_keys = {}
+
+    def reinitialize(self, ek: G.EvalKey, backend: str = "auto") -> None:
+        """Preset swap for a long-lived server: free every device key of
+        the current parameter set, then prepare the keys of a new EvalKey
+        (its parameters may differ) on the same device. Ciphertexts of the
+        old set are invalid."""
+        self._key_form("pallas" if backend == "auto" else backend)
+        self.release_keys()
+        self.params = ek.params
+        self.keys = K.prepare_keys(ek, self.device)
+
+    def _check_keys(self) -> None:
+        for f in dataclasses.fields(self.keys):
+            if not getattr(self.keys, f.name).numel():
+                raise ValueError(f"evaluation key {f.name} was released "
+                                 f"(Context.release_keys); restore it with "
+                                 f"Context.prepare_backend(ek)")
+
+    # -- where work runs -----------------------------------------------------
+    def _keys_on(self, dev: torch.device) -> K.DeviceKeys:
+        """The keys on `dev`: the context's own set when the devices match
+        (compared as tensor devices), else a copy made once."""
+        self._check_keys()
+        if dev == self.device:
+            return self.keys
+        if dev not in self._dev_keys:
+            self._dev_keys[dev] = K.DeviceKeys(**{
+                f.name: getattr(self.keys, f.name).to(dev)
+                for f in dataclasses.fields(self.keys)})
+        return self._dev_keys[dev]
+
+    @staticmethod
+    def _lane(stream):
+        """The body runs on the stream's CUDA stream, or without a stream
+        (or on a CPU lane) on the caller's current stream."""
+        if stream is not None and stream.cuda_stream is not None:
+            return torch.cuda.stream(stream.cuda_stream)
+        return contextlib.nullcontext()
+
+    def _take(self, ct: Ctxt, dev: torch.device, caller) -> torch.Tensor:
+        """ct's data on `dev`, ordered after the work that made it on the
+        stream that runs the body (called inside _lane)."""
+        x = ct.data
+        if ct.ready is not None:
+            torch.cuda.current_stream(x.device).wait_event(ct.ready)
+        if x.device != dev:
+            x = x.to(dev)
+        elif dev.type == "cuda":
+            cur = torch.cuda.current_stream(dev)
+            if ct.ready is None and caller is not None and cur != caller:
+                cur.wait_stream(caller)
+            # the allocator must not reuse x's memory before this stream
+            # has read it
+            x.record_stream(cur)
+        return x
+
+    def _run(self, stream, level: int, fn, *cts: Ctxt,
+             keys: bool = True) -> Ctxt:
+        """fn(keys, *data) on stream's lane (or the context's device) with
+        every input waited for; the result, with its ready event."""
+        if stream is None:
+            dev = self.device
+            self._on_device(*cts)
+        else:
+            dev = stream.device
+        k = self._keys_on(dev) if keys else None
+        caller = (torch.cuda.current_stream(dev) if dev.type == "cuda"
+                  else None)
+        with self._lane(stream):
+            out = fn(k, *(self._take(ct, dev, caller) for ct in cts))
+            res = Ctxt(out, level, _ready_event(out))
+        if stream is not None:
+            stream.record(res)
+        return res
+
+    def _inputs(self, *cts: Ctxt) -> list:
+        """The inputs' data on the context's device, ordered after their
+        producers on the current stream (the executor's entry)."""
+        self._on_device(*cts)
+        return [self._take(ct, self.device, None) for ct in cts]
+
+    def _outputs(self, datas: Sequence[torch.Tensor], level: int) -> list:
+        """Ctxts of tensors made on the current stream, sharing one ready
+        event."""
+        ev = _ready_event(datas[0]) if datas else None
+        return [Ctxt(d, level, ev) for d in datas]
+
+    def _on_device(self, *cts: Ctxt) -> None:
         for ct in cts:
             if ct.data.device != self.device:
                 raise ValueError(f"ciphertext on {ct.data.device}, context "
@@ -97,7 +257,6 @@ class Context:
             raise ValueError(f"gate input batches differ: "
                              f"{tuple(in0.data.shape)} vs "
                              f"{tuple(in1.data.shape)}")
-        self._on_device(in0, in1)
         return B.gate_lvl0 if in0.level == 0 else B.gate_lvl1
 
     def _mu(self, level: int) -> int:
@@ -107,13 +266,14 @@ class Context:
     def gate(self, name: str, in0: Ctxt, in1: Ctxt, stream=None) -> Ctxt:
         """Evaluate one of the ten bootstrapped two-input gates on a batch
         at either level."""
-        _no_stream(stream)
         if name not in GATE_CONSTANTS:
             raise ValueError(f"unknown gate {name!r}; "
                              f"choose from {sorted(GATE_CONSTANTS)}")
         fn = self._two_input(in0, in1)
-        return Ctxt(fn(GATE_CONSTANTS[name], in0.data, in1.data, self.keys,
-                       self.params), in0.level)
+        c = GATE_CONSTANTS[name]
+        return self._run(stream, in0.level,
+                         lambda k, x, y: fn(c, x, y, k, self.params),
+                         in0, in1)
 
     def gate_rows(self, c3_rows, in0: Ctxt, in1: Ctxt) -> Ctxt:
         """A mix of two-input gates in one batch: row i of c3_rows ([G, 3]
@@ -129,8 +289,9 @@ class Context:
             raise ValueError(f"gate rows must be [G, 3] with G dividing the "
                              f"batch {Bsz}, got {tuple(c3.shape)}")
         c3 = c3.repeat_interleave(Bsz // c3.shape[0], dim=0)
-        return Ctxt(fn(c3, in0.data, in1.data, self.keys, self.params),
-                    in0.level)
+        return self._run(None, in0.level,
+                         lambda k, x, y: fn(c3, x, y, k, self.params),
+                         in0, in1)
 
     def gate_chain(self, name, in0: Ctxt, in1: Ctxt,
                    depth: Optional[int] = None, stream=None) -> Ctxt:
@@ -138,7 +299,6 @@ class Context:
         `name` is one gate name (applied `depth` times) or a sequence of
         names, one per step. A loop of the same gate calls, so
         bit-identical to them; the outputs stay on the device."""
-        _no_stream(stream)
         if isinstance(name, str):
             if depth is None:
                 raise ValueError("depth is required with a single gate name")
@@ -154,36 +314,37 @@ class Context:
             if nm not in GATE_CONSTANTS:
                 raise ValueError(f"unknown gate {nm!r}")
         fn = self._two_input(in0, in1)
-        out = in0.data
-        for nm in names:
-            out = fn(GATE_CONSTANTS[nm], out, in1.data, self.keys,
-                     self.params)
-        return Ctxt(out, in0.level)
+
+        def chain(k, out, y):
+            for nm in names:
+                out = fn(GATE_CONSTANTS[nm], out, y, k, self.params)
+            return out
+        return self._run(stream, in0.level, chain, in0, in1)
 
     def mux(self, inc: Ctxt, in1: Ctxt, in0: Ctxt, negate: bool = False,
             stream=None) -> Ctxt:
         """Mux(inc ? in1 : in0), or its negation: two blind rotations."""
-        _no_stream(stream)
         if not (inc.level == in1.level == in0.level):
             raise ValueError("mux inputs must share a level")
         if not (inc.data.shape == in1.data.shape == in0.data.shape):
             raise ValueError("mux input batches differ")
-        self._on_device(inc, in1, in0)
         fn = B.mux_lvl0 if inc.level == 0 else B.mux_lvl1
-        return Ctxt(fn(inc.data, in1.data, in0.data, self.keys, self.params,
-                       negate=negate), inc.level)
+        return self._run(stream, inc.level,
+                         lambda k, c, x1, x0: fn(c, x1, x0, k, self.params,
+                                                 negate=negate),
+                         inc, in1, in0)
 
     def nmux(self, inc: Ctxt, in1: Ctxt, in0: Ctxt, stream=None) -> Ctxt:
         return self.mux(inc, in1, in0, negate=True, stream=stream)
 
     # -- linear gates -------------------------------------------------------
     def not_(self, ct: Ctxt, stream=None) -> Ctxt:
-        _no_stream(stream)
-        return Ctxt(B.not_gate(ct.data), ct.level)
+        return self._run(stream, ct.level, lambda _, x: B.not_gate(x), ct,
+                         keys=False)
 
     def copy(self, ct: Ctxt, stream=None) -> Ctxt:
-        _no_stream(stream)
-        return Ctxt(B.copy_gate(ct.data), ct.level)
+        return self._run(stream, ct.level, lambda _, x: B.copy_gate(x), ct,
+                         keys=False)
 
     # -- TRLWE / TRGSW path ---------------------------------------------
     def prepare_trgsw(self, trgsw: np.ndarray) -> torch.Tensor:
@@ -197,30 +358,37 @@ class Context:
         return TrlweCtxt(B.cmux(trgsw_dev, c1.data, c0.data, self.params))
 
     def refresh(self, tr: TrlweCtxt) -> TrlweCtxt:
-        return TrlweCtxt(B.refresh(tr.data, self.keys, self.params))
+        return TrlweCtxt(B.refresh(tr.data, self._keys_on(self.device),
+                                   self.params))
 
     def bootstrap_tlwe2trlwe(self, ct: Ctxt,
                              mu: Optional[int] = None) -> TrlweCtxt:
         mu = self.params.lvl1.mu if mu is None else mu
-        return TrlweCtxt(B.bootstrap_tlwe2trlwe(ct.data, mu, self.keys,
-                                                self.params))
+        return TrlweCtxt(self._run(None, ct.level, lambda k, x:
+                                   B.bootstrap_tlwe2trlwe(x, mu, k,
+                                                          self.params),
+                                   ct).data)
 
     def pbs_tlwe2trlwe(self, ct: Ctxt, tv) -> TrlweCtxt:
         """Programmable bootstrap, TLWE -> TRLWE: blind-rotate a custom test
         polynomial tv ([N] or [B, N], uint32 array or int32 tensor) by the
         input phase."""
-        return TrlweCtxt(B.pbs_tlwe2trlwe(ct.data, self._tensor(tv),
-                                          self.keys, self.params))
+        t = self._tensor(tv)
+        return TrlweCtxt(self._run(None, ct.level, lambda k, x:
+                                   B.pbs_tlwe2trlwe(x, t, k, self.params),
+                                   ct).data)
 
     def programmable_bootstrap(self, ct: Ctxt, tv) -> Ctxt:
         """Custom-test-vector blind rotation, extraction, key switch to
         lvl0: the output encrypts tv[w] (negacyclically -tv[w - N]) where w
         is the mod-switched phase window of the input."""
-        return Ctxt(B.programmable_bootstrap(ct.data, self._tensor(tv),
-                                             self.keys, self.params), 0)
+        t = self._tensor(tv)
+        return self._run(None, 0, lambda k, x: B.programmable_bootstrap(
+            x, t, k, self.params), ct)
 
     def sample_extract_and_keyswitch(self, tr: TrlweCtxt) -> Ctxt:
-        return Ctxt(B.sei_and_ks(tr.data, self.keys, self.params), 0)
+        out = B.sei_and_ks(tr.data, self._keys_on(self.device), self.params)
+        return Ctxt(out, 0, _ready_event(out))
 
     # -- named gate shorthands (the reference's public gate list) ---------
     def nand(self, a, b, stream=None): return self.gate("nand", a, b, stream=stream)

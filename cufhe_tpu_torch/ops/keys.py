@@ -75,14 +75,20 @@ def prepare_trgsw(trgsw: np.ndarray, params: GateParams,
         np.moveaxis(limbs, 3, 0))).to(device)
 
 
+#: how each DeviceKeys field is built from the host EvalKey
+_FIELDS = {"bk_ext": lambda ek: prepare_bk_ext(ek.bk, ek.params),
+           "ksk_limbs_sei": lambda ek: ksk_limbs_sei(ek.ksk, ek.params),
+           "sei_perm": lambda ek: sei_perm(ek.params)}
+
+
+def prepare_fields(ek: EvalKey, names, device="cuda") -> dict:
+    """The named DeviceKeys fields, converted on the host and uploaded to
+    `device` (Context.prepare_backend rebuilds released ones with it)."""
+    return {n: torch.from_numpy(np.ascontiguousarray(_FIELDS[n](ek))
+                                ).to(device) for n in names}
+
+
 def prepare_keys(ek: EvalKey, device="cuda") -> DeviceKeys:
     """One-time host-side key conversion and upload to `device` (by
     default the card)."""
-    p = ek.params
-
-    def put(x: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
-
-    return DeviceKeys(bk_ext=put(prepare_bk_ext(ek.bk, p)),
-                      ksk_limbs_sei=put(ksk_limbs_sei(ek.ksk, p)),
-                      sei_perm=put(sei_perm(p)))
+    return DeviceKeys(**prepare_fields(ek, _FIELDS, device))

@@ -1,7 +1,10 @@
-"""cufhe_tpu_torch on a CUDA device: the blind-rotation kernel and both
-tensor-core probe kernels (wgmma and mma.sync) against their plain PyTorch
-versions, and the gates and mux at both levels against the port's golden
-model, as uint32 equality. Every test skips without a CUDA device.
+"""cufhe_tpu_torch on a CUDA device: the blind-rotation kernel (at the tiny
+presets and at every full preset) and both tensor-core probe kernels (wgmma
+and mma.sync) against their plain PyTorch versions; the gates and mux at
+both levels against the port's golden model; the executor against its CPU
+run; gates chained across CUDA streams against the default stream; and the
+key lifecycle's device memory. Results compare as uint32. Every test skips
+without a CUDA device.
 
 This file imports neither JAX nor the JAX package (the oracle is the
 port's own golden.py and params.py), so it runs where only the port's
@@ -15,14 +18,21 @@ import numpy as np
 import pytest
 import torch
 
-from cufhe_tpu_torch import Context, decrypt_bits, encrypt_bits
+from cufhe_tpu_torch import Context, Ctxt, decrypt_bits, encrypt_bits
 from cufhe_tpu_torch import golden as G
 from cufhe_tpu_torch import params as P
 from cufhe_tpu_torch.benchmarks import mxu_peak as MP
 from cufhe_tpu_torch.models.gates import TWO_INPUT
 from cufhe_tpu_torch.ops import blind_rotate as BR
 from cufhe_tpu_torch.ops import keys as TK
+from cufhe_tpu_torch.runtime import (Stream, build_ripple_adder,
+                                     run_schedule, synchronize)
+from cufhe_tpu_torch.runtime import executor as EX
 from cufhe_tpu_torch.torus import from_u32, int_mm, to_u32
+
+#: the published parameter sets, at full size
+FULL_PRESETS = [P.TFHEPP_128, P.TFHEPP_128_BG8, P.TFHEPP_80, P.CGGI19,
+                P.CONCRETE, P.RADIX4_2048]
 
 
 @pytest.fixture
@@ -272,3 +282,101 @@ def test_cuda_lvl1_gates_and_mux_match_golden(params, cuda):
             plain = [y if x else z for x, y, z in zip(bitsc, bits0, bits1)]
             assert decrypt_bits(out, sk).tolist() == \
                 [1 - v if negate else v for v in plain]
+
+
+def _random_bk_ext(params, seed, device):
+    """The kernel's key layout of a random BK [n0, (k+1)l, k+1, N] (no key
+    generation: parity needs only the layout)."""
+    lp = params.lvl1
+    bk = np.random.default_rng(seed).integers(
+        0, 1 << 32, (params.n0, (lp.k + 1) * lp.l, lp.k + 1, lp.n),
+        dtype=np.uint64).astype(np.uint32)
+    return torch.from_numpy(BR.prepare_bk_ext(bk, params)).to(device)
+
+
+@pytest.mark.parametrize("params", FULL_PRESETS, ids=lambda p: p.name)
+def test_cuda_kernel_matches_ref_full_presets(params, cuda):
+    """Every published preset through the kernel at 8 rows, k = 2 and
+    N = 512 (concrete), nd = 2 digit limbs (tfhepp_80bit, radix4_2048) and
+    N = 2048 (radix4_2048) included."""
+    bk_ext = _random_bk_ext(params, 98, cuda)
+    acc, abar = _random_inputs(params, 8, 99, cuda)
+    before = BR.blind_rotate_cuda.launches
+    got = BR.blind_rotate_cuda(acc, abar, bk_ext, params)
+    want = BR.blind_rotate_ref(acc, abar, bk_ext, params)
+    torch.cuda.synchronize()
+    assert BR.blind_rotate_cuda.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("chunk", ["", "2"], ids=["one-step", "chunked"])
+def test_run_schedule_on_the_card_equals_the_cpu(chunk, cuda, monkeypatch):
+    """The executor on the card: a 4-bit ripple adder equal as uint32 to
+    its run on the CPU's plain path, one kernel launch per planned
+    rotation."""
+    monkeypatch.setenv("CUFHE_EXEC_CHUNK", chunk)
+    sk, ek = _keys(P.TINY, 100)
+    s = build_ripple_adder(4)[0].compile()
+    rng = np.random.default_rng(101)
+    bits = rng.integers(0, 2, (9, 5))
+    ctx, cpu = Context(ek), Context(ek, device="cpu")
+    enc = [encrypt_bits(b, sk, rng) for b in bits]
+    before = BR.blind_rotate_cuda.launches
+    outs = run_schedule(ctx, s, enc)
+    assert BR.blind_rotate_cuda.launches - before == \
+        EX.plan_rotations(EX.schedule_steps(ctx, s, 5))
+    want = run_schedule(cpu, s, [Ctxt(c.data.cpu(), 0) for c in enc])
+    for o, w in zip(outs, want):
+        assert o.data.is_cuda
+        assert np.array_equal(to_u32(o.data), to_u32(w.data))
+    for o, b in zip(outs, EX.simulate_schedule(s, list(bits))):
+        assert np.array_equal(decrypt_bits(o, sk), b)
+
+
+def test_gates_chain_across_streams_without_synchronise(cuda):
+    """A chain hopping between two Streams and the default stream, with no
+    explicit synchronise, equals the same chain on the default stream; the
+    streams' keys are the context's own set."""
+    sk, ek = _keys(P.TINY_K2, 102)
+    rng = np.random.default_rng(103)
+    ctx = Context(ek)
+    a = encrypt_bits(rng.integers(0, 2, 2048), sk, rng)
+    b = encrypt_bits(rng.integers(0, 2, 2048), sk, rng)
+    s1, s2 = Stream(), Stream()
+    assert s1.device == ctx.device and s1.cuda_stream is not None
+    x = ctx.nand(a, b, stream=s1)
+    y = ctx.xor(x, b, stream=s2)
+    z = ctx.nand(y, a)
+    w = ctx.mux(z, x, y, stream=s1)
+    v = ctx.gate_chain(["and", "or"], w, z, stream=s2)
+    assert ctx._keys_on(s1.device) is ctx.keys and not ctx._dev_keys
+    rx = ctx.nand(a, b)
+    ry = ctx.xor(rx, b)
+    rz = ctx.nand(ry, a)
+    rw = ctx.mux(rz, rx, ry)
+    rv = ctx.gate_chain(["and", "or"], rw, rz)
+    for got, want in ((x, rx), (y, ry), (z, rz), (w, rw), (v, rv)):
+        assert np.array_equal(decrypt_bits(got, sk), decrypt_bits(want, sk))
+        assert torch.equal(got.data, want.data)
+    synchronize()
+    assert s1.query() and s2.query()
+
+
+def test_release_keys_frees_the_key_memory(cuda):
+    sk, ek = _keys(P.TINY, 104)
+    rng = np.random.default_rng(105)
+    ctx = Context(ek)
+    a = encrypt_bits([0, 1, 0, 1], sk, rng)
+    b = encrypt_bits([0, 0, 1, 1], sk, rng)
+    before = ctx.nand(a, b)
+    key_bytes = sum(t.numel() * t.element_size() for t in
+                    (ctx.keys.bk_ext, ctx.keys.ksk_limbs_sei,
+                     ctx.keys.sei_perm))
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    ctx.release_keys()
+    assert held - torch.cuda.memory_allocated() >= key_bytes
+    with pytest.raises(ValueError, match="release_keys"):
+        ctx.nand(a, b)
+    ctx.prepare_backend(ek)
+    assert torch.equal(ctx.nand(a, b).data, before.data)
