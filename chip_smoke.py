@@ -12,7 +12,8 @@ Phases, each raising on failure:
   3. the blind-rotation kernel against its plain PyTorch version, bit for
      bit, on random accumulators (8 and 129 rows) at ten parameter sets,
      every published preset among them;
-  4. Context(ek, "cuda").nand on the four input pairs at tfhepp_128bit
+  4. Context(ek).nand (keys on the card) on the four input pairs at
+     tfhepp_128bit
      against the port's NumPy gate oracle golden.gate_lvl0, as uint32;
   5. the main path: encrypt -> a chain of lvl0 NANDs on device-resident
      outputs at batch 4096, tfhepp_128bit -> decrypt, with 0 decrypt
@@ -54,7 +55,20 @@ Phases, each raising on failure:
      batch 1 over a 20-deep chain, and one such gate under torch.profiler;
  14. the key lifecycle: release_keys frees the key bytes (memory_allocated),
      a gate then raises ValueError, prepare_backend restores them and the
-     gate is bit-exact again, reinitialize to concrete runs a correct NAND.
+     gate is bit-exact again, reinitialize to concrete runs a correct NAND
+     (run last: it swaps the context's preset);
+ 15. encrypted integers (models.integers.IntContext, msg_bits 1) on phase
+     4's context: a 32-bit add at batch 4096 with 0 word errors and one
+     launch per digit (adds/s, rotations/s); at batch 256 a 16-bit
+     sub_full, eq and select(ge(x, y), x, y), an 8-bit mul and divmod_,
+     each checked against plain integers with launches equal to the count
+     worked out from the code; row 0 of an 8-bit add equal as uint32 to a
+     ripple of 8 golden.pbs_many calls (phase 9's worker pool, while the
+     card works);
+ 16. the TOY8 processor (models.processor): 64 lanes of random programs
+     for 2 cycles through run_cycles in the loop and the scan mode, equal
+     to each other as uint32, 0 lane errors against interpret, launches
+     equal to the plan times the cycles; lane-cycles/s, bootstraps/s.
 
 Prints the card line, a {"kernels": [...]} line, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -86,7 +100,7 @@ HBM_BYTES_PER_S = 3.35e12
 #: rows of each full-width result held against golden (seconds each)
 GOLDEN_ROWS = (0, BATCH - 1)
 WORKERS = 6
-#: the device of phases 8 and 9
+#: the device of phases 8, 9, 15 and 16
 DEV = "cuda"
 MIXED = ("nand", "xor", "andyn", "orny")
 #: phase 11's presets (phase 3 also holds the kernel to its plain version
@@ -98,6 +112,12 @@ AES_BATCH = 8
 STREAM_BATCH = 256
 STREAM_DEPTH = 6
 LATENCY_DEPTH = 20
+#: phase 15's full-width word size and its narrow batch; phase 16's lanes
+#: and cycles
+INT_BITS = 32
+INT_BATCH = 256
+TOY8_LANES = 64
+TOY8_CYCLES = 2
 
 
 def log(msg: str) -> None:
@@ -224,6 +244,21 @@ def _g_b2t_refresh(ct):
     tr = G.bootstrap_tlwe2trlwe(ct, _EK.params.lvl1.mu, _EK)
     rf = G.refresh(tr, _EK)
     return tr, rf, G.sei_and_ks(rf, _EK)
+
+
+def _g_add_ripple(xd, yd, tv):
+    """An 8-bit encrypted add of one row through golden.pbs_many: per
+    digit, one rotation of x_d + y_d + carry gives (sum digit, carry).
+    Returns the sum digits [D, n0+1] uint32 (phase 15)."""
+    import numpy as np
+    from cufhe_tpu_torch import golden as G
+    c = np.zeros(xd.shape[1], dtype=np.uint32)
+    sums = []
+    for a, b in zip(xd, yd):
+        sc = G.pbs_many(a + b + c, tv, 2, _EK, theta=1)
+        sums.append(sc[0])
+        c = sc[1]
+    return np.stack(sums)
 
 
 def _g_nand_with(ek, x, y):
@@ -511,6 +546,158 @@ def phase_lifecycle(ctx, sk, ek, concrete, tag: str) -> None:
         raise AssertionError("nand after reinitialize decrypts wrong")
 
 
+def int_launches(op: str, D: int) -> int:
+    """Blind-rotation launches of an IntContext operation at msg_bits 1 on
+    D-digit words, as models/integers.py makes them: one pbs_many call per
+    digit of a ripple, one per digit set batched into a call."""
+    return {"add": D, "sub_full": D,
+            # the indicators in one call, then one call per OR-tree round
+            "eq": 1 + (D - 1).bit_length(),
+            # ge's ripple, the bool bridge, the one select call
+            "select_ge": D + 2,
+            # per row: the AND row, then a ripple over 2D digits
+            "mul": D * (2 * D + 1),
+            # per quotient bit: a ripple over D+1 digits, then a select
+            "divmod_": D * (D + 2)}[op]
+
+
+def phase_integers(ictx, sk, gate_rate: float, add8, gold_add8,
+                   tag: str) -> int:
+    """15. Encrypted integers at msg_bits 1: a 32-bit add at batch 4096,
+    then at INT_BATCH a 16-bit sub_full, eq and select(ge(x, y), x, y) and
+    an 8-bit mul and divmod_, each decrypt-checked with launches equal to
+    int_launches; the 8-bit add of `add8`, its row 0 equal to the golden
+    ripple. Returns the kernel launches of the phase."""
+    import numpy as np
+    import cufhe_tpu_torch as T
+    from cufhe_tpu_torch.models.integers import decrypt_uint, encrypt_uint
+    from cufhe_tpu_torch.torus import to_u32
+
+    rng = np.random.default_rng(18)
+    total = 0
+
+    def words(bits, n):
+        return [int(v) for v in rng.integers(0, 1 << bits, n,
+                                             dtype=np.uint64)]
+
+    def run(what, op, D, fn, batch):
+        nonlocal total
+        want = int_launches(op, D)
+        out, dt = timed(what, want, fn)
+        total += want
+        log(f"{what} at batch {batch}: {dt * 1e3:.1f} ms (host clock), "
+            f"{want} kernel launches = the count from the code, "
+            f"{batch / dt:.2f} words/s {tag}")
+        return out
+
+    def check(what, got, want):
+        errors = sum(int(g != w) for g, w in zip(got, want))
+        log(f"  {what}: word errors {errors} of {len(want)}")
+        if errors:
+            raise AssertionError(f"{what}: {errors} wrong words")
+
+    # the full-width row: one 32-bit add at batch 4096
+    D = INT_BITS
+    xs, ys = words(D, BATCH), words(D, BATCH)
+    x = encrypt_uint(xs, D, sk, rng=rng, device=DEV)
+    y = encrypt_uint(ys, D, sk, rng=rng, device=DEV)
+    s, dt = timed(f"{D}-bit add", D, lambda: ictx.add(x, y))
+    total += D
+    adds = BATCH / dt
+    log(f"{D}-bit add at batch {BATCH}, {ictx.ctx.params.name}: "
+        f"{dt * 1e3:.1f} ms (host clock), {D} kernel launches; "
+        f"{adds:.2f} adds/s, {adds * D:.2f} rotations/s "
+        f"({100 * adds * D / gate_rate:.1f} % of phase 5's gate rate) "
+        f"{tag}")
+    check(f"{D}-bit add", decrypt_uint(s, sk),
+          [(a + b) % (1 << D) for a, b in zip(xs, ys)])
+    del x, y, s
+
+    # the narrow ops at INT_BATCH
+    B16 = INT_BATCH
+    xs, ys = words(16, B16), words(16, B16)
+    ys[::4] = xs[::4]                       # equal words for eq and ge
+    x = encrypt_uint(xs, 16, sk, rng=rng, device=DEV)
+    y = encrypt_uint(ys, 16, sk, rng=rng, device=DEV)
+    d, ge = run("16-bit sub_full", "sub_full", 16,
+                lambda: ictx.sub_full(x, y), B16)
+    check("16-bit sub_full difference", decrypt_uint(d, sk),
+          [(a - b) % (1 << 16) for a, b in zip(xs, ys)])
+    check("16-bit sub_full ge digit",
+          T.decrypt_bits(ictx.digit_to_bool(ge), sk),
+          [int(a >= b) for a, b in zip(xs, ys)])
+    eq = run("16-bit eq", "eq", 16, lambda: ictx.eq(x, y), B16)
+    check("16-bit eq", T.decrypt_bits(eq, sk),
+          [int(a == b) for a, b in zip(xs, ys)])
+    mx = run("16-bit select(ge(x, y), x, y)", "select_ge", 16,
+             lambda: ictx.select(ictx.ge(x, y), x, y), B16)
+    check("16-bit max by select", decrypt_uint(mx, sk),
+          [max(a, b) for a, b in zip(xs, ys)])
+    xs, ys = words(8, B16), words(8, B16)
+    x = encrypt_uint(xs, 8, sk, rng=rng, device=DEV)
+    y = encrypt_uint(ys, 8, sk, rng=rng, device=DEV)
+    p = run("8-bit mul", "mul", 8, lambda: ictx.mul(x, y), B16)
+    check("8-bit mul", decrypt_uint(p, sk),
+          [a * b for a, b in zip(xs, ys)])
+    ys[0] = 0                               # the div-by-zero convention
+    y = encrypt_uint(ys, 8, sk, rng=rng, device=DEV)
+    q, r = run("8-bit divmod_", "divmod_", 8, lambda: ictx.divmod_(x, y),
+               B16)
+    check("8-bit divmod_ quotient", decrypt_uint(q, sk),
+          [a // b if b else 255 for a, b in zip(xs, ys)])
+    check("8-bit divmod_ remainder", decrypt_uint(r, sk),
+          [a % b if b else a for a, b in zip(xs, ys)])
+
+    # the 8-bit add held against the golden ripple on row 0
+    (x8, y8), (xs, ys) = add8
+    s8 = run("8-bit add", "add", 8, lambda: ictx.add(x8, y8), x8.batch)
+    check("8-bit add", decrypt_uint(s8, sk),
+          [(a + b) % 256 for a, b in zip(xs, ys)])
+    t0 = time.perf_counter()
+    if not np.array_equal(to_u32(s8.digits[0]), gold_add8.result()):
+        raise AssertionError("8-bit add row 0 disagrees with the golden "
+                             "ripple")
+    log(f"8-bit add row 0 equal as uint32 to 8 dependent golden.pbs_many "
+        f"(waited {time.perf_counter() - t0:.1f} s for the worker)")
+    return total
+
+
+def phase_toy8(ctx, sk, gate_rate: float, tag: str) -> int:
+    """16. TOY8: TOY8_LANES random programs for TOY8_CYCLES cycles through
+    run_cycles in the loop and the scan mode; both equal as uint32, 0 lane
+    errors, launches equal to the plan. Returns the launches of the
+    phase."""
+    import numpy as np
+    import torch
+    from cufhe_tpu_torch.benchmarks import processor as PB
+    from cufhe_tpu_torch.models import processor as TOY
+
+    sched = TOY.build_cycle()[0].compile()
+    progs = PB.random_programs(np.random.default_rng(19), TOY8_LANES)
+    states, total = {}, 0
+    for scan in (False, True):
+        states[scan], rec = PB.run(ctx, sk, sched, progs, TOY8_CYCLES, scan)
+        total += rec["rotation_launches"]
+        log(f"TOY8 {rec['mode']} mode, {TOY8_LANES} lanes x {TOY8_CYCLES} "
+            f"cycles ({sched.num_gates} gates, {sched.num_levels} levels, "
+            f"{PB.bootstraps_per_cycle(sched)} bootstraps a lane-cycle): "
+            f"{rec['seconds']:.3f} s, {rec['lane_cycles_per_sec']:.2f} "
+            f"lane-cycles/s, {rec['bootstraps_per_sec']:.2f} effective "
+            f"bootstraps/s ({100 * rec['bootstraps_per_sec'] / gate_rate:.1f}"
+            f" % of phase 5's gate rate), {rec['rotation_launches']} kernel "
+            f"launches (plan {rec['planned_rotations']}), lane errors "
+            f"{rec['lane_errors']}, peak memory {rec['peak_memory_gb']:.2f} "
+            f"GB {tag}")
+        if rec["lane_errors"] or \
+                rec["rotation_launches"] != rec["planned_rotations"]:
+            raise AssertionError(f"TOY8 {rec['mode']} mode failed its checks")
+    for a, b in zip(states[False], states[True]):
+        if not torch.equal(a.data, b.data):
+            raise AssertionError("TOY8 scan mode differs from the loop")
+    log("TOY8: the scan mode's state equals the loop's as uint32")
+    return total
+
+
 def phase_probe(info: dict, tag: str) -> dict:
     """7. Both probe kernels against their plain version, then the probe's
     path with the launch counts zeroed just before it. Returns the kernels
@@ -666,10 +853,10 @@ def phase_tiny_paths() -> None:
             f"equal to golden as uint32 ({', '.join(checks)})")
 
 
-def phase_full_width(ctx, sk, ek, tag: str) -> None:
+def phase_full_width(ctx, sk, ek, pool, tag: str) -> None:
     """9. The new paths at tfhepp_128bit, batch 4096, device-resident:
-    decrypt, golden on GOLDEN_ROWS (worker processes, concurrently with
-    the card), one kernel launch per blind rotation."""
+    decrypt, golden on GOLDEN_ROWS (`pool`'s worker processes,
+    concurrently with the card), one kernel launch per blind rotation."""
     import numpy as np
     import torch
     import cufhe_tpu_torch as T
@@ -706,101 +893,98 @@ def phase_full_width(ctx, sk, ek, tag: str) -> None:
         if errors:
             raise AssertionError(f"{what}: {errors} decrypt errors")
 
-    spawn = multiprocessing.get_context("spawn")
-    with ProcessPoolExecutor(WORKERS, mp_context=spawn,
-                             initializer=_pool_init, initargs=(ek,)) as pool:
-        gold = {
-            "lvl1 nand": [pool.submit(_g_gate, 1, "nand", ha1[r], hb1[r])
-                          for r in GOLDEN_ROWS],
-            "mux_lvl0": [pool.submit(_g_mux, hc0[r], ha0[r], hb0[r])
-                         for r in GOLDEN_ROWS],
-            "gate_chain": [pool.submit(_g_chain, MIXED, ha0[r], hb0[r])
-                           for r in GOLDEN_ROWS],
-            "gate_rows": [pool.submit(_g_gate, 0, per_row[r], ha0[r],
-                                      hb0[r]) for r in GOLDEN_ROWS],
-            "pbs_many": [pool.submit(_g_pbs_many, ha0[r], tv, 2, 1)
-                         for r in GOLDEN_ROWS],
-            "b2t_refresh": [pool.submit(_g_b2t_refresh, ha0[r])
-                            for r in GOLDEN_ROWS],
-        }
-        # the lvl1 key switch reads the one (sample-extract order) KSK
-        # through a column gather: its cost, against no gather
-        ksk, perm = ctx.keys.ksk_limbs_sei, ctx.keys.sei_perm
-        _, ks_ms = cuda_ms(lambda: key_switch(a1.data, ksk, p, perm=perm), 5)
-        _, plain_ms = cuda_ms(lambda: key_switch(a1.data, ksk, p), 5)
-        log(f"lvl1 key switch at batch {BATCH}: {ks_ms:.3f} ms with the "
-            f"sei_perm gather, {plain_ms:.3f} ms without (CUDA events) {tag}")
-        outs = {}
-        for what, rot, fn, want in (
-                ("lvl1 nand", 1, lambda: ctx.nand(a1, b1),
-                 1 - (bits0 & bits1)),
-                ("mux_lvl0", 2, lambda: ctx.mux(c0, a0, b0),
-                 np.where(bitsc == 1, bits0, bits1))):
-            out, dt = run(what, rot, fn)
-            _, dt2 = run(what, rot, fn)
-            decrypt_errors(what, out, want)
-            outs[what] = out
-            log(f"{what}: {BATCH / statistics.median((dt, dt2)):.2f} gates/s "
-                f"(reps {dt * 1e3:.1f}, {dt2 * 1e3:.1f} ms per batch) {tag}")
-        chain, _ = run("gate_chain", len(MIXED),
-                       lambda: ctx.gate_chain(MIXED, a0, b0))
-        cur, want = a0, bits0
-        for nm in MIXED:
-            cur = ctx.gate(nm, cur, b0)
-            want = np.array([G.PLAIN_GATES[nm](x, y)
-                             for x, y in zip(want, bits1)])
-        if not torch.equal(chain.data, cur.data):
-            raise AssertionError("gate_chain differs from its gate() calls")
-        log(f"gate_chain {list(MIXED)}: equal to the {len(MIXED)} separate "
-            f"gate() calls")
-        decrypt_errors("gate_chain", chain, want)
-        consts = B.encode_gate_consts_rows(names16, p.lvl0.mu, DEV)
-        mixed, _ = run("gate_rows", 1, lambda: ctx.gate_rows(consts, a0, b0))
-        decrypt_errors("gate_rows (ten gates, gate-major)", mixed,
-                       [G.PLAIN_GATES[nm](x, y)
-                        for nm, x, y in zip(per_row, bits0, bits1)])
-        many, _ = run("pbs_many", 1, lambda: B.pbs_many(
-            a0.data, from_u32(tv, DEV), 2, ctx.keys, p, theta=1))
-        decrypt_errors("pbs_many J=2 theta=1 (bit, not bit)",
-                       T.Ctxt(many.reshape(2 * BATCH, -1), 0),
-                       np.concatenate([bits0, 1 - bits0]))
-        tr, _ = run("bootstrap_tlwe2trlwe", 1,
-                    lambda: ctx.bootstrap_tlwe2trlwe(a0))
-        via, _ = run("pbs_tlwe2trlwe", 1, lambda: ctx.pbs_tlwe2trlwe(
-            a0, np.full(lp.n, lp.mu, dtype=np.uint32)))
-        if not torch.equal(tr.data, via.data):
-            raise AssertionError("pbs_tlwe2trlwe(constant mu) differs from "
-                                 "bootstrap_tlwe2trlwe")
-        log(f"pbs_tlwe2trlwe with the constant-mu test vector: equal to "
-            f"bootstrap_tlwe2trlwe at batch {BATCH}")
-        rf, _ = run("refresh", 1, lambda: ctx.refresh(tr))
-        ext, _ = run("sample_extract_and_keyswitch", 0,
-                     lambda: ctx.sample_extract_and_keyswitch(rf))
-        decrypt_errors("refresh -> sample_extract_and_keyswitch", ext, bits0)
+    gold = {
+        "lvl1 nand": [pool.submit(_g_gate, 1, "nand", ha1[r], hb1[r])
+                      for r in GOLDEN_ROWS],
+        "mux_lvl0": [pool.submit(_g_mux, hc0[r], ha0[r], hb0[r])
+                     for r in GOLDEN_ROWS],
+        "gate_chain": [pool.submit(_g_chain, MIXED, ha0[r], hb0[r])
+                       for r in GOLDEN_ROWS],
+        "gate_rows": [pool.submit(_g_gate, 0, per_row[r], ha0[r],
+                                  hb0[r]) for r in GOLDEN_ROWS],
+        "pbs_many": [pool.submit(_g_pbs_many, ha0[r], tv, 2, 1)
+                     for r in GOLDEN_ROWS],
+        "b2t_refresh": [pool.submit(_g_b2t_refresh, ha0[r])
+                        for r in GOLDEN_ROWS],
+    }
+    # the lvl1 key switch reads the one (sample-extract order) KSK
+    # through a column gather: its cost, against no gather
+    ksk, perm = ctx.keys.ksk_limbs_sei, ctx.keys.sei_perm
+    _, ks_ms = cuda_ms(lambda: key_switch(a1.data, ksk, p, perm=perm), 5)
+    _, plain_ms = cuda_ms(lambda: key_switch(a1.data, ksk, p), 5)
+    log(f"lvl1 key switch at batch {BATCH}: {ks_ms:.3f} ms with the "
+        f"sei_perm gather, {plain_ms:.3f} ms without (CUDA events) {tag}")
+    outs = {}
+    for what, rot, fn, want in (
+            ("lvl1 nand", 1, lambda: ctx.nand(a1, b1),
+             1 - (bits0 & bits1)),
+            ("mux_lvl0", 2, lambda: ctx.mux(c0, a0, b0),
+             np.where(bitsc == 1, bits0, bits1))):
+        out, dt = run(what, rot, fn)
+        _, dt2 = run(what, rot, fn)
+        decrypt_errors(what, out, want)
+        outs[what] = out
+        log(f"{what}: {BATCH / statistics.median((dt, dt2)):.2f} gates/s "
+            f"(reps {dt * 1e3:.1f}, {dt2 * 1e3:.1f} ms per batch) {tag}")
+    chain, _ = run("gate_chain", len(MIXED),
+                   lambda: ctx.gate_chain(MIXED, a0, b0))
+    cur, want = a0, bits0
+    for nm in MIXED:
+        cur = ctx.gate(nm, cur, b0)
+        want = np.array([G.PLAIN_GATES[nm](x, y)
+                         for x, y in zip(want, bits1)])
+    if not torch.equal(chain.data, cur.data):
+        raise AssertionError("gate_chain differs from its gate() calls")
+    log(f"gate_chain {list(MIXED)}: equal to the {len(MIXED)} separate "
+        f"gate() calls")
+    decrypt_errors("gate_chain", chain, want)
+    consts = B.encode_gate_consts_rows(names16, p.lvl0.mu, DEV)
+    mixed, _ = run("gate_rows", 1, lambda: ctx.gate_rows(consts, a0, b0))
+    decrypt_errors("gate_rows (ten gates, gate-major)", mixed,
+                   [G.PLAIN_GATES[nm](x, y)
+                    for nm, x, y in zip(per_row, bits0, bits1)])
+    many, _ = run("pbs_many", 1, lambda: B.pbs_many(
+        a0.data, from_u32(tv, DEV), 2, ctx.keys, p, theta=1))
+    decrypt_errors("pbs_many J=2 theta=1 (bit, not bit)",
+                   T.Ctxt(many.reshape(2 * BATCH, -1), 0),
+                   np.concatenate([bits0, 1 - bits0]))
+    tr, _ = run("bootstrap_tlwe2trlwe", 1,
+                lambda: ctx.bootstrap_tlwe2trlwe(a0))
+    via, _ = run("pbs_tlwe2trlwe", 1, lambda: ctx.pbs_tlwe2trlwe(
+        a0, np.full(lp.n, lp.mu, dtype=np.uint32)))
+    if not torch.equal(tr.data, via.data):
+        raise AssertionError("pbs_tlwe2trlwe(constant mu) differs from "
+                             "bootstrap_tlwe2trlwe")
+    log(f"pbs_tlwe2trlwe with the constant-mu test vector: equal to "
+        f"bootstrap_tlwe2trlwe at batch {BATCH}")
+    rf, _ = run("refresh", 1, lambda: ctx.refresh(tr))
+    ext, _ = run("sample_extract_and_keyswitch", 0,
+                 lambda: ctx.sample_extract_and_keyswitch(rf))
+    decrypt_errors("refresh -> sample_extract_and_keyswitch", ext, bits0)
 
-        got = {"lvl1 nand": to_u32(outs["lvl1 nand"].data),
-               "mux_lvl0": to_u32(outs["mux_lvl0"].data),
-               "gate_chain": to_u32(chain.data),
-               "gate_rows": to_u32(mixed.data),
-               "pbs_many": to_u32(many).transpose(1, 0, 2),
-               "b2t_refresh": list(zip(to_u32(tr.data), to_u32(rf.data),
-                                       to_u32(ext.data)))}
-        t0 = time.perf_counter()
-        for what, futures in gold.items():
-            for r, fut in zip(GOLDEN_ROWS, futures):
-                want = fut.result()
-                mine = got[what][r]
-                if isinstance(want, tuple):
-                    equal = all(np.array_equal(x, y)
-                                for x, y in zip(mine, want))
-                else:
-                    equal = np.array_equal(mine, want)
-                if not equal:
-                    raise AssertionError(f"{what} row {r} disagrees with "
-                                         f"golden")
-        log(f"full width vs golden on rows {list(GOLDEN_ROWS)}: "
-            f"{', '.join(gold)} equal as uint32 (waited "
-            f"{time.perf_counter() - t0:.1f} s for the workers)")
+    got = {"lvl1 nand": to_u32(outs["lvl1 nand"].data),
+           "mux_lvl0": to_u32(outs["mux_lvl0"].data),
+           "gate_chain": to_u32(chain.data),
+           "gate_rows": to_u32(mixed.data),
+           "pbs_many": to_u32(many).transpose(1, 0, 2),
+           "b2t_refresh": list(zip(to_u32(tr.data), to_u32(rf.data),
+                                   to_u32(ext.data)))}
+    t0 = time.perf_counter()
+    for what, futures in gold.items():
+        for r, fut in zip(GOLDEN_ROWS, futures):
+            want = fut.result()
+            mine = got[what][r]
+            if isinstance(want, tuple):
+                equal = all(np.array_equal(x, y)
+                            for x, y in zip(mine, want))
+            else:
+                equal = np.array_equal(mine, want)
+            if not equal:
+                raise AssertionError(f"{what} row {r} disagrees with "
+                                     f"golden")
+    log(f"full width vs golden on rows {list(GOLDEN_ROWS)}: "
+        f"{', '.join(gold)} equal as uint32 (waited "
+        f"{time.perf_counter() - t0:.1f} s for the workers)")
 
 
 def profile_kernels(fn):
@@ -898,6 +1082,7 @@ def main() -> int:
     from cufhe_tpu_torch import golden as G
     from cufhe_tpu_torch.bench import (card, expected_nand_chain,
                                        time_nand_chain)
+    from cufhe_tpu_torch.models.integers import IntContext, encrypt_uint
     from cufhe_tpu_torch.ops import blind_rotate as BR
     from cufhe_tpu_torch.ops.keys import prepare_keys
     from cufhe_tpu_torch.torus import to_u32
@@ -1024,15 +1209,45 @@ def main() -> int:
     del a8, b8, got, want
 
     # 7. the tensor-core probe; 8. and 9. the bootstrapping paths
-    probe = phase_probe(info, tag)
-    phase_tiny_paths()
-    phase_full_width(ctx, sk, ek, tag)
-    phase_profile(ctx, sk, tag)
-    # 11.-14. the presets, circuits, streams and the key lifecycle
-    phase_presets(eks, tag)
-    phase_circuits(ctx, sk, gate_rate, tag)
-    phase_streams(ctx, sk, tag)
-    phase_lifecycle(ctx, sk, ek, eks["concrete"], tag)
+    seconds = {"1-6": time.perf_counter() - started}
+
+    def phase(name, fn, *args):
+        """fn(*args), its host seconds kept under `name`."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    probe = phase("7", phase_probe, info, tag)
+    phase("8", phase_tiny_paths)
+    ictx = IntContext(ctx)
+    spawn = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(WORKERS, mp_context=spawn,
+                             initializer=_pool_init, initargs=(ek,)) as pool:
+        phase("9", phase_full_width, ctx, sk, ek, pool, tag)
+        # phase 15's golden ripple runs in the pool while the card works
+        rng = np.random.default_rng(20)
+        xs8, ys8 = ([int(v) for v in rng.integers(0, 256, INT_BATCH)]
+                    for _ in range(2))
+        x8, y8 = (encrypt_uint(v, 8, sk, rng=rng, device=DEV)
+                  for v in (xs8, ys8))
+        gold_add8 = pool.submit(_g_add_ripple, to_u32(x8.digits[0]),
+                                to_u32(y8.digits[0]), to_u32(ictx._tv_add))
+        phase("10", phase_profile, ctx, sk, tag)
+        # 11.-13. the presets, circuits and streams
+        phase("11", phase_presets, eks, tag)
+        phase("12", phase_circuits, ctx, sk, gate_rate, tag)
+        phase("13", phase_streams, ctx, sk, tag)
+        # 15. and 16. integers and TOY8 on phase 4's context; each call's
+        # launches are read from the counter, zeroed just before it
+        int_launches_run = phase(
+            "15", phase_integers, ictx, sk, gate_rate,
+            ((x8, y8), (xs8, ys8)), gold_add8, tag)
+    toy8_launches_run = phase("16", phase_toy8, ctx, sk, gate_rate, tag)
+    # 14. the key lifecycle, last: it swaps the context's preset
+    phase("14", phase_lifecycle, ctx, sk, ek, eks["concrete"], tag)
+    log("host seconds per phase: " + ", ".join(
+        f"{name} {s:.1f}" for name, s in seconds.items()))
 
     for mod in ("jax", "cufhe_tpu"):
         if mod in sys.modules:
@@ -1043,7 +1258,9 @@ def main() -> int:
         {"name": "blind_rotate", "route": "cuda", "source": SOURCE,
          "replaces": REPLACES, "launches": launches, "max_abs_err": max_err,
          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-         "bound_by": bound_by, "library_ms": library_ms},
+         "bound_by": bound_by, "library_ms": library_ms,
+         "launches_integers": int_launches_run,
+         "launches_toy8": toy8_launches_run},
         {"name": "mxu_peak", "route": "cuda", "source": PROBE_SOURCE,
          "replaces": PROBE_REPLACES, **probe["mma_sync"]},
         {"name": "mxu_peak_wgmma", "route": "cuda", "source": WGMMA_SOURCE,

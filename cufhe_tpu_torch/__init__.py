@@ -12,14 +12,19 @@ Layers:
   ops     — poly, key switch, key preparation, blind rotation (plain PyTorch
             and the CUDA kernel of csrc/), gates at both levels, mux, CMUX,
             refresh, programmable and multi-output bootstrapping
-  models  — Context and the gate API (streams, the key lifecycle), and
-            composite circuits (circuits)
+  models  — Context and the gate API (streams, the key lifecycle),
+            composite circuits (circuits), encrypted integers on
+            multi-output bootstrapping (integers: IntContext) and the TOY8
+            encrypted processor (processor)
+  compat  — the v1 cuFHE API (SetSeed, KeyGen, Initialize, Encrypt,
+            capitalised gates, Synchronize, CleanUp)
   runtime — circuit builder and level scheduler (C++ core), Bristol
             import, AES-128 / SHA-256 netlists, the schedule executor,
             streams on CUDA streams and events
   utils   — key and ciphertext files, CUDA-event timing
   benchmarks — the tensor-core probe (plain PyTorch and the CUDA kernels
-            of csrc/mxu_peak*.cu), AES-128, SHA-256, the stream stress test
+            of csrc/mxu_peak*.cu), AES-128, SHA-256, the stream stress
+            test, encrypted integers, the TOY8 processor
 """
 from .models import Context, Ctxt, TrlweCtxt, decrypt_bits, encrypt_bits
 from .params import (CGGI19, CONCRETE, DEFAULT, PALLAS_BG10, PALLAS_BG10_KAR,

@@ -2,8 +2,9 @@
 
 A copy of cufhe_tpu/golden.py's client side and of the oracles the port's
 paths are checked against, so that the port never imports the JAX
-package: secret and evaluation key generation, batched encryption and
-decryption of bits at both levels, TRLWE/TRGSW encryption, and the plain
+package: secret and evaluation key generation, TLWE encryption, phase and
+decryption of one sample or a batch, encryption and decryption of bits at
+both levels, TRLWE/TRGSW encryption, and the plain
 NumPy gates (both levels, mux), CMUX, refresh and programmable
 bootstrapping (single and multi-output). With the same seeds and
 parameters every function here returns exactly what its namesake in
@@ -59,6 +60,18 @@ def _gaussian_torus(rng: RngLike, alpha: float, shape) -> np.ndarray:
     return np.round(noise * float(_MOD)).astype(np.int64).astype(np.uint32)
 
 
+def tlwe_encrypt(mu: int, key: np.ndarray, alpha: float,
+                 rng: Optional[RngLike] = None) -> np.ndarray:
+    """TLWE sample (a_0..a_{d-1}, b) with b = <a,s> + mu + e."""
+    rng = resolve_rng(rng=rng)
+    d = key.shape[0]
+    a = rng.integers(0, _MOD, size=d, dtype=np.uint64).astype(np.uint32)
+    b = _u32(np.sum(a.astype(np.int64) * key.astype(np.int64)) + int(mu)
+             + int(_gaussian_torus(rng, alpha, ())))
+    return np.concatenate([a, np.array([b], dtype=np.uint32)])
+
+
+
 def tlwe_encrypt_batch(mus: np.ndarray, key: np.ndarray, alpha: float,
                        rng: Optional[RngLike] = None) -> np.ndarray:
     """Batch TLWE encryption: [B] torus messages -> [B, d+1] samples with
@@ -73,6 +86,35 @@ def tlwe_encrypt_batch(mus: np.ndarray, key: np.ndarray, alpha: float,
     b = _u32(a.astype(np.int64) @ key.astype(np.int64)
              + mus.astype(np.int64) + e.astype(np.int64))
     return np.concatenate([a, b[:, None]], axis=1)
+
+
+def tlwe_phase(ct: np.ndarray, key: np.ndarray) -> np.uint32:
+    d = key.shape[0]
+    return _u32(int(ct[d]) - int(np.sum(ct[:d].astype(np.int64)
+                                        * key.astype(np.int64))))
+
+
+def tlwe_decrypt(ct: np.ndarray, key: np.ndarray) -> int:
+    """1 if the phase is in the upper half-plane (int32 phase > 0)."""
+    return 1 if np.int32(tlwe_phase(ct, key)) > 0 else 0
+
+
+def encrypt_bit(bit: int, sk: SecretKey, rng: Optional[RngLike] = None,
+                level: int = 0) -> np.ndarray:
+    """Encrypt one bit as ±mu, the test harness convention (test_util.h:16-23)."""
+    rng = resolve_rng(rng=rng)
+    p = sk.params
+    if level == 0:
+        mu = p.lvl0.mu if bit else (-p.lvl0.mu) % _MOD
+        return tlwe_encrypt(mu, sk.lvl0, p.lvl0.alpha, rng)
+    mu = p.lvl1.mu if bit else (-p.lvl1.mu) % _MOD
+    return tlwe_encrypt(mu, sk.lvl1.reshape(-1), p.lvl1.alpha, rng)
+
+
+def decrypt_bit(ct: np.ndarray, sk: SecretKey, level: int = 0) -> int:
+    key = sk.lvl0 if level == 0 else sk.lvl1.reshape(-1)
+    return tlwe_decrypt(ct, key)
+
 
 
 def encrypt_bit_batch(bits: np.ndarray, sk: SecretKey,

@@ -51,10 +51,11 @@ class TrlweCtxt:
 
 
 def encrypt_bits(bits: Sequence[int], sk: G.SecretKey,
-                 rng: Optional[np.random.Generator] = None,
-                 device="cuda", level: int = 0) -> Ctxt:
+                 rng: Optional[np.random.Generator] = None, level: int = 0,
+                 *, device="cuda") -> Ctxt:
     """Encrypt bits into a ciphertext batch at `level` on `device` (client
-    side, NumPy), by default the card, where Context keeps its keys.
+    side, NumPy), by default the card, where Context keeps its keys. The
+    positional order is the JAX package's (bits, sk, rng, level).
     rng=None draws from the OS CSPRNG; pass a seeded Generator only for
     reproducible tests."""
     data = from_u32(G.encrypt_bit_batch(bits, sk, rng, level=level), device)
@@ -79,39 +80,62 @@ def _ready_event(t: torch.Tensor) -> Optional[torch.cuda.Event]:
     return ev
 
 
+#: the JAX package's backend names whose results are exact and equal to
+#: each other ("auto" picks one of them there); the port runs every one as
+#: its one exact path (the blind rotation of ops/blind_rotate.py)
+EXACT_BACKENDS = ("auto", "pallas", "conv", "toeplitz")
+
+
+def resolve_backend(backend: str) -> str:
+    """The port's path for a JAX backend name: "pallas" for every exact
+    backend; the ntt parity path and the reduced-precision "pallas3" are
+    not ported, and any other name is refused."""
+    if backend in EXACT_BACKENDS:
+        return "pallas"
+    if backend == "ntt":
+        raise NotImplementedError("the ntt backend is not ported yet "
+                                  "(ROADMAP queue 1 item 4)")
+    if backend == "pallas3":
+        raise NotImplementedError("backend 'pallas3' (reduced precision) is "
+                                  "left out of the port; use an exact "
+                                  f"backend, one of {EXACT_BACKENDS}")
+    raise ValueError(f"unknown backend {backend!r}; the port's exact "
+                     f"backends are {EXACT_BACKENDS}")
+
+
 class Context:
     """Server-side evaluation context on one device.
 
     Converts the evaluation key to limb form once and keeps it on `device`.
     Every blind rotation on CUDA tensors runs through the CUDA kernel, on
-    CPU tensors through its plain PyTorch version.
+    CPU tensors through its plain PyTorch version. `backend` takes the JAX
+    package's names (resolve_backend) and is kept as given in
+    self.backend.
     """
 
     #: DeviceKeys fields of each key form, the unit of release_keys and
     #: prepare_backend: "pallas" is the blind rotation's key (the port's one
-    #: form of it), "ksk" every key switch's
+    #: form of it, which every exact backend name selects), "ksk" every key
+    #: switch's
     _BACKEND_KEY_FIELDS = {"pallas": ("bk_ext",),
                            "ksk": ("ksk_limbs_sei", "sei_perm")}
 
-    def __init__(self, ek: G.EvalKey, device="cuda", mesh=None):
+    def __init__(self, ek: G.EvalKey, backend: str = "auto", mesh=None, *,
+                 device="cuda"):
         if mesh is not None:
             raise NotImplementedError("multi-device meshes are not ported "
-                                      "yet (ROADMAP queue 1 item 14)")
+                                      "yet (ROADMAP queue 1 item 3)")
+        resolve_backend(backend)
+        self.backend = backend
         self.params: GateParams = ek.params
         self.keys = K.prepare_keys(ek, torch.device(device))
         self.device = self.keys.device      # "cuda" resolved to "cuda:0"
         self._dev_keys = {}
 
     # -- key lifecycle ------------------------------------------------------
-    @classmethod
-    def _key_form(cls, backend: str) -> str:
-        if backend == "ntt":
-            raise NotImplementedError("the ntt backend is not ported yet "
-                                      "(ROADMAP queue 1 item 15)")
-        if backend not in cls._BACKEND_KEY_FIELDS:
-            raise ValueError(f"unknown backend {backend!r}; the port's key "
-                             f"forms are {sorted(cls._BACKEND_KEY_FIELDS)}")
-        return backend
+    @staticmethod
+    def _key_form(backend: str) -> str:
+        return "ksk" if backend == "ksk" else resolve_backend(backend)
 
     def release_keys(self, backends: Optional[Sequence[str]] = None) -> None:
         """Free device key material now (the DeleteBootstrappingKeyNTT /
@@ -119,11 +143,11 @@ class Context:
         keyswitch_gpu.cuh:190-196): a long-lived server swapping presets
         must not hold two key sets.
 
-        backends=None frees every key; ("pallas",) frees the blind
-        rotation's key, ("ksk",) the key switch's. Work already enqueued is
-        waited for first, and the caching allocator hands the memory back
-        to the device. Gates raise ValueError until prepare_backend restores
-        the keys."""
+        backends=None frees every key; an exact backend name such as
+        ("pallas",) frees the blind rotation's key, ("ksk",) the key
+        switch's. Work already enqueued is waited for first, and the
+        caching allocator hands the memory back to the device. Gates raise
+        ValueError until prepare_backend restores the keys."""
         names = (self._BACKEND_KEY_FIELDS if backends is None
                  else [self._key_form(b) for b in backends])
         fields = {f for b in names for f in self._BACKEND_KEY_FIELDS[b]}
@@ -137,28 +161,31 @@ class Context:
 
     def prepare_backend(self, ek: G.EvalKey, backend: str = "auto") -> None:
         """(Re-)build one key form from the host EvalKey on the context's
-        device ("auto" and "pallas": the blind rotation's key), and the key
-        switch's too if a release dropped it: the inverse of
-        release_keys."""
+        device (an exact backend name: the blind rotation's key; "ksk": the
+        key switch's), and the key switch's too if a release dropped it:
+        the inverse of release_keys."""
         if ek.params != self.params:
             raise ValueError(f"eval key is for {ek.params.name}, the context "
                              f"for {self.params.name}; use reinitialize")
-        form = self._key_form("pallas" if backend == "auto" else backend)
+        form = self._key_form(backend)
         fields = set(self._BACKEND_KEY_FIELDS[form])
         if not self.keys.ksk_limbs_sei.numel():
             fields |= set(self._BACKEND_KEY_FIELDS["ksk"])
         self.keys = dataclasses.replace(
             self.keys, **K.prepare_fields(ek, fields, self.device))
         self._dev_keys = {}
+        if form != "ksk":
+            self.backend = backend
 
     def reinitialize(self, ek: G.EvalKey, backend: str = "auto") -> None:
         """Preset swap for a long-lived server: free every device key of
         the current parameter set, then prepare the keys of a new EvalKey
         (its parameters may differ) on the same device. Ciphertexts of the
         old set are invalid."""
-        self._key_form("pallas" if backend == "auto" else backend)
+        resolve_backend(backend)
         self.release_keys()
         self.params = ek.params
+        self.backend = backend
         self.keys = K.prepare_keys(ek, self.device)
 
     def _check_keys(self) -> None:

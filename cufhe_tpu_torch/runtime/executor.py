@@ -295,7 +295,11 @@ def run_schedule(ctx: Context, sched: Schedule, inputs: Sequence[Ctxt],
     """Execute a compiled circuit. inputs[i] feeds sched.inputs[i]; every
     input batch must share shape [B, dim+1] and level. Returns output Ctxts
     in declaration order, on the context's device. Runs on the current
-    stream after the inputs' producers (Ctxt.ready)."""
+    stream after the inputs' producers (Ctxt.ready). A circuit with neither
+    inputs nor constants has nothing to run and returns []; one with
+    constants but no inputs has no batch shape and raises."""
+    if not inputs and not sched.inputs and not sched.consts:
+        return []
     Bsz, _, lvl = _check_inputs(sched, inputs)
     prog = _Program(ctx, sched, Bsz, lvl)
     regs = prog.registers(ctx, [prog.slot[w] for w in sched.inputs],

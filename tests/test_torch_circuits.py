@@ -4,6 +4,7 @@ packages, every output compared as uint32, and the decryptions against
 plaintext arithmetic."""
 import numpy as np
 import pytest
+import torch
 
 from cufhe_tpu import golden as G
 from cufhe_tpu.models import api as JA
@@ -11,6 +12,17 @@ from cufhe_tpu.models import circuits as JC
 from cufhe_tpu_torch import Context, TrlweCtxt, decrypt_bits, encrypt_bits
 from cufhe_tpu_torch.models import circuits as C
 from cufhe_tpu_torch.torus import from_u32, to_u32
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Intra-op threads off while this module runs: the suite runs several
+    worker processes on the same cores, where torch's thread pool spends
+    its time waiting for its own threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

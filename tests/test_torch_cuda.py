@@ -380,3 +380,89 @@ def test_release_keys_frees_the_key_memory(cuda):
         ctx.nand(a, b)
     ctx.prepare_backend(ek)
     assert torch.equal(ctx.nand(a, b).data, before.data)
+
+
+def _int_pair(device):
+    """The same operands on `device`: 8-bit words and 4-bit divisors at
+    PALLAS_TINY."""
+    from cufhe_tpu_torch.models.integers import encrypt_uint
+    sk, _ = _keys(P.PALLAS_TINY, 106)
+    rng = np.random.default_rng(107)
+    return [encrypt_uint(v, bits, sk, rng=rng, device=device)
+            for v, bits in (([200, 17, 255, 3], 8), ([100, 239, 1, 0], 8),
+                            ([13, 7, 9, 15], 4), ([3, 2, 0, 1], 4))]
+
+
+@pytest.mark.parametrize("op", ["add_full", "divmod_"])
+def test_integers_on_the_card_equal_the_cpu(op, cuda):
+    """An 8-bit add_full and a 4-bit divmod_ (msg_bits 1) on the card,
+    equal as uint32 to the CPU's plain path; one launch per pbs_many."""
+    from cufhe_tpu_torch.models.integers import IntContext, decrypt_uint
+    sk, ek = _keys(P.PALLAS_TINY, 106)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        ictx = IntContext(Context(ek, device=dev))
+        x, y, n, d = _int_pair(dev)
+        before = BR.blind_rotate_cuda.launches
+        outs[dev] = (ictx.add_full(x, y) if op == "add_full"
+                     else ictx.divmod_(n, d))
+        if dev == "cuda":
+            assert BR.blind_rotate_cuda.launches - before == \
+                (8 if op == "add_full" else 4 * 6)
+    (a, b), (c, e) = outs["cuda"], outs["cpu"]
+    for got, want in ((a, c), (b, e)):
+        got = getattr(got, "digits", got)
+        want = getattr(want, "digits", want)
+        assert got.is_cuda and np.array_equal(to_u32(got), to_u32(want))
+    if op == "add_full":
+        assert decrypt_uint(a, sk) == [44, 0, 0, 3]
+    else:
+        assert decrypt_uint(a, sk) == [4, 3, 15, 15]
+        assert decrypt_uint(b, sk) == [1, 1, 9, 0]
+
+
+def test_toy8_cycle_on_the_card_equals_the_cpu(cuda):
+    from cufhe_tpu_torch.models import processor as TOY
+    sk, ek = _keys(P.TINY, 108)
+    sched = TOY.build_cycle()[0].compile()
+    progs = [[("ldi", 0x5A), ("add", 0x33)], [("ldi", 0), ("jz", 5)],
+             [("xor", 0xFF)]]
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        ins = TOY.encrypt_state(progs, sk, np.random.default_rng(109),
+                                device=dev)
+        outs[dev] = TOY.run_cycles(Context(ek, device=dev), sched, ins, 1)
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        assert got.data.is_cuda
+        assert np.array_equal(to_u32(got.data), to_u32(want.data))
+    acc, pc = TOY.decrypt_state(outs["cuda"], sk)
+    for lane, prog in enumerate(progs):
+        assert (acc[lane], pc[lane]) == TOY.interpret(prog, 1)
+
+
+def test_compat_gates_on_the_card(cuda):
+    """The v1 surface with its defaults: keys and ciphertexts on the
+    card, gates on a Stream."""
+    import cufhe_tpu_torch.compat as cf
+    cf.SetSeed(110)
+    pri, pub = cf.PriKey(P.TINY), cf.PubKey(P.TINY)
+    cf.KeyGen(pub, pri)
+    cf.Initialize(pub)
+    try:
+        st = cf.Stream()
+        for a in (0, 1):
+            for b in (0, 1):
+                c0, c1, out, neg = cf.Ctxt(), cf.Ctxt(), cf.Ctxt(), cf.Ctxt()
+                cf.Encrypt(c0, cf.Ptxt(a), pri)
+                cf.Encrypt(c1, cf.Ptxt(b), pri)
+                assert c0._c.data.is_cuda
+                cf.Nand(out, c0, c1, st)
+                cf.Not(neg, out, st)
+                cf.Synchronize()
+                for ct, want in ((out, 1 - (a & b)), (neg, a & b)):
+                    pt = cf.Ptxt()
+                    cf.Decrypt(pt, ct, pri)
+                    assert pt.message_ == want
+    finally:
+        cf.CleanUp()
+        cf.SetSeed()

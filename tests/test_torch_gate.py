@@ -66,7 +66,7 @@ def test_unported_paths_raise(setup):
     """Meshes are still unported and name their ROADMAP item; unknown
     gates, ragged batches and mixed levels are refused."""
     sk, ek, ctx, jctx, a, b = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 14"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 3"):
         Context(ek, device="cpu", mesh=object())
     with pytest.raises(ValueError, match="unknown gate"):
         ctx.gate("nope", a, b)
@@ -88,3 +88,41 @@ def test_public_entry_points_default_to_the_card(fn):
     from cufhe_tpu_torch.ops import keys as TK
     obj = getattr(T, fn, None) or getattr(TK, fn)
     assert inspect.signature(obj).parameters["device"].default == "cuda"
+
+
+@pytest.mark.parametrize("backend", ["auto", "pallas", "conv", "toeplitz"])
+def test_context_takes_the_reference_backend_names(backend, setup):
+    """Context(ek, backend, mesh, *, device) in the JAX package's order:
+    every exact backend name runs the one exact path, kept as given."""
+    sk, ek, ctx, jctx, a, b = setup
+    named = Context(ek, backend, device="cpu")
+    assert named.backend == backend and named.device.type == "cpu"
+    assert torch.equal(named.nand(a, b).data, ctx.nand(a, b).data)
+    assert Context(ek, backend=backend, device="cpu").backend == backend
+    assert ctx.backend == "auto"
+
+
+def test_context_refuses_unported_and_unknown_backends(tiny_key):
+    _, ek = tiny_key
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
+        Context(ek, "ntt", device="cpu")
+    with pytest.raises(NotImplementedError, match="reduced precision"):
+        Context(ek, backend="pallas3", device="cpu")
+    for name in ("cuda", "cpu", "definitely-not-a-backend"):
+        with pytest.raises(ValueError, match="unknown backend"):
+            Context(ek, name, device="cpu")
+
+
+def test_encrypt_bits_level_is_the_fourth_argument(tiny_key):
+    """encrypt_bits(bits, sk, rng, level) as in the JAX package: a fourth
+    positional 1 is the level, and device is keyword-only."""
+    sk, _ = tiny_key
+    ct = encrypt_bits(BITS0, sk, np.random.default_rng(91), 1,
+                      device="cpu")
+    want = JA.encrypt_bits(BITS0, sk, np.random.default_rng(91), 1)
+    assert ct.level == want.level == 1 and ct.data.device.type == "cpu"
+    assert np.array_equal(to_u32(ct.data), np.asarray(want.data))
+    assert ct.data.shape == (4, sk.params.lvl1.k * sk.params.lvl1.n + 1)
+    assert decrypt_bits(ct, sk).tolist() == BITS0
+    with pytest.raises(TypeError):
+        encrypt_bits(BITS0, sk, None, 0, "cpu")

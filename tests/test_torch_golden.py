@@ -123,6 +123,22 @@ def _oracle_case(mod, case: str, params):
 
     if case == "encrypt_bit_batch_lvl1":
         return lvl1([0, 1, 1, 0])
+    if case == "tlwe_encrypt":
+        return np.stack([mod.tlwe_encrypt(mu, sk.lvl0, 2.0 ** -15, rng)
+                         for mu in (0, 1 << 29, (1 << 32) - 5)])
+    if case in ("encrypt_bit", "encrypt_bit_lvl1"):
+        level = int(case.endswith("lvl1"))
+        return np.stack([mod.encrypt_bit(b, sk, rng, level=level)
+                         for b in (0, 1, 1)])
+    if case in ("tlwe_phase", "tlwe_decrypt", "decrypt_bit"):
+        cts = lvl0([0, 1, 1, 0, 1])
+        if case == "tlwe_phase":
+            return np.array([mod.tlwe_phase(c, sk.lvl0) for c in cts])
+        fn = (mod.decrypt_bit if case == "decrypt_bit"
+              else lambda c, _: mod.tlwe_decrypt(c, sk.lvl0))
+        out = np.array([fn(c, sk) for c in cts])
+        assert out.tolist() == [0, 1, 1, 0, 1]
+        return out
     if case == "trlwe_encrypt_zero":
         return mod.trlwe_encrypt_zero(lp, sk.lvl1, rng)
     if case == "trlwe_encrypt_bits":
@@ -180,7 +196,9 @@ def _oracle_case(mod, case: str, params):
     raise KeyError(case)
 
 
-ORACLE_CASES = ["encrypt_bit_batch_lvl1", "trlwe_encrypt_zero",
+ORACLE_CASES = ["encrypt_bit_batch_lvl1", "tlwe_encrypt", "encrypt_bit",
+                "encrypt_bit_lvl1", "tlwe_phase", "tlwe_decrypt",
+                "decrypt_bit", "trlwe_encrypt_zero",
                 "trlwe_encrypt_bits", "trlwe_phase", "trgsw_encrypt",
                 "blind_rotate_tv", "programmable_bootstrap",
                 "mod_switch_round", "blind_rotate_tv_many",

@@ -86,19 +86,26 @@ def test_released_keys_raise_not_fault(keyed_bits):
 
 
 def test_unknown_and_unported_backends(keyed_bits):
+    """The key lifecycle takes the names Context takes: the exact backends
+    ("conv" and "toeplitz" name the blind rotation's one key form), not
+    ntt or an unknown name."""
     _, ek, *_ = keyed_bits
     ctx = Context(ek, device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):
         ctx.release_keys(("definitely-not-a-backend",))
     with pytest.raises(ValueError, match="unknown backend"):
-        ctx.prepare_backend(ek, "conv")
-    with pytest.raises(NotImplementedError, match="queue 1 item 15"):
+        ctx.prepare_backend(ek, "definitely-not-a-backend")
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
         ctx.release_keys(("ntt",))
-    with pytest.raises(NotImplementedError, match="queue 1 item 15"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
         ctx.prepare_backend(ek, "ntt")
-    with pytest.raises(NotImplementedError, match="queue 1 item 15"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
         ctx.reinitialize(ek, "ntt")
     assert ctx.keys.bk_ext.numel() > 0       # nothing was released
+    ctx.release_keys(("conv",))
+    assert ctx.keys.bk_ext.numel() == 0 and ctx.keys.sei_perm.numel() > 0
+    ctx.prepare_backend(ek, "toeplitz")
+    assert ctx.keys.bk_ext.numel() > 0 and ctx.backend == "toeplitz"
     sk2 = JG.keygen(JP.TINY_K2, seed=2)
     with pytest.raises(ValueError, match="reinitialize"):
         ctx.prepare_backend(JG.make_eval_key(sk2, seed=3))

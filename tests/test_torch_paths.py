@@ -21,6 +21,18 @@ from cufhe_tpu_torch.ops import keys as TK
 from cufhe_tpu_torch.ops import keyswitch as TKS
 from cufhe_tpu_torch.torus import from_u32, i32, to_u32
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Intra-op threads off while this module runs: the suite runs several
+    worker processes on the same cores, where torch's thread pool spends
+    its time waiting for its own threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 BITS0 = [0, 1, 0, 1]
 BITS1 = [0, 0, 1, 1]
 BITSC = [0, 1, 1, 0]

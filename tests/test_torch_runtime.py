@@ -25,6 +25,18 @@ from cufhe_tpu_torch.runtime import (Stream, run_schedule, run_schedule_loop,
                                      stream_query, synchronize)
 from cufhe_tpu_torch.torus import to_u32
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Intra-op threads off while this module runs: the suite runs several
+    worker processes on the same cores, where torch's thread pool spends
+    its time waiting for its own threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REF_ROTATE = BR.blind_rotate_ref
 
 # a 2-bit adder and a const/INV/MUX circuit in Bristol Fashion (the JAX
@@ -368,6 +380,27 @@ def test_executor_rejects_bad_inputs(setup):
         run_schedule_loop(ctx, s, enc, 2, feedback=[(9, 0)])
     with pytest.raises(ValueError, match="cycles"):
         run_schedule_loop(ctx, s, enc, 0, feedback=[])
+
+
+def test_empty_circuit_returns_nothing(setup):
+    """A circuit with neither inputs nor constants runs nothing and returns
+    [], as the JAX package's run_schedule does; constants without inputs
+    have no batch shape and are refused by both."""
+    sk, ek, ctx, jctx = setup
+    empty = GR.CircuitBuilder().compile()
+    jempty = JGR.CircuitBuilder().compile()
+    assert empty.inputs == empty.outputs == [] and not empty.consts
+    assert run_schedule(ctx, empty, []) == JEX.run_schedule(jctx, jempty,
+                                                            []) == []
+    cb, jcb = GR.CircuitBuilder(), JGR.CircuitBuilder()
+    for b in (cb, jcb):
+        b.output(b.const(1))
+    for runner, c, s in ((run_schedule, ctx, cb.compile()),
+                         (JEX.run_schedule, jctx, jcb.compile())):
+        with pytest.raises(ValueError, match="batch shape"):
+            runner(c, s, [])
+    with pytest.raises(ValueError, match="inputs"):
+        run_schedule(ctx, empty, _enc([np.array([0, 1])], sk, 44))
 
 
 def test_precompile_counts_step_shapes(setup, monkeypatch):
