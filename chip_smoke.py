@@ -68,7 +68,18 @@ Phases, each raising on failure:
  16. the TOY8 processor (models.processor): 64 lanes of random programs
      for 2 cycles through run_cycles in the loop and the scan mode, equal
      to each other as uint32, 0 lane errors against interpret, launches
-     equal to the plan times the cycles; lane-cycles/s, bootstraps/s.
+     equal to the plan times the cycles; lane-cycles/s, bootstraps/s;
+ 17. the ntt backend (Context(ek, "ntt"), torch ops, no K1 launch): a NAND
+     on the card equal as uint32 to the CPU at TINY, TINY_K2, PALLAS_BG10
+     and tfhepp_128bit; at batch 4096 on phase 5's inputs, 0 decrypt
+     errors, gates/s, peak memory and the phase distance to the exact
+     path; its key lifecycle;
+ 18. the mesh on one card: phase 5's chain on data_mesh() and on two
+     shards of cuda:0, equal as uint32, one launch per shard per gate; on
+     two shards the ripple adder, an 8-bit IntContext.add and a
+     run_schedule_loop circuit equal to the plain context; no second key
+     set; the meshes' gates/s as a share of phase 5's (17 and 18 run
+     before 14).
 
 Prints the card line, a {"kernels": [...]} line, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -349,7 +360,7 @@ def phase_circuits(ctx, sk, gate_rate: float, tag: str) -> None:
     """12. runtime.run_schedule at tfhepp_128bit: an 8-bit ripple adder
     equal as uint32 to its gates called one by one on the Context, then
     AES-128 at AES_BATCH with every block checked; launches equal to the
-    plan's rotations."""
+    plan's rotations. Returns the adder's (schedule, inputs, outputs)."""
     import numpy as np
     import torch
     import cufhe_tpu_torch as T
@@ -381,6 +392,7 @@ def phase_circuits(ctx, sk, gate_rate: float, tag: str) -> None:
     got = sum(T.decrypt_bits(o, sk).astype(np.int64) << i
               for i, o in enumerate(outs))
     errors = int(np.sum(got != x + y + cin))
+    adder = (sched, cts, outs)
     log(f"{nbits}-bit ripple adder through run_schedule at batch {batch}: "
         f"{sched.num_gates} gates, {sched.num_levels} levels, {planned} "
         f"kernel launches, {dt * 1e3:.1f} ms, equal as uint32 to the "
@@ -403,6 +415,7 @@ def phase_circuits(ctx, sk, gate_rate: float, tag: str) -> None:
     if rec["block_errors"] or \
             rec["rotation_launches"] != rec["planned_rotations"]:
         raise AssertionError("AES-128 failed its checks")
+    return adder
 
 
 def phase_streams(ctx, sk, tag: str) -> None:
@@ -504,7 +517,7 @@ def phase_lifecycle(ctx, sk, ek, concrete, tag: str) -> None:
     a, b = (T.encrypt_bits(x, sk, rng) for x in (bits0, bits1))
     before, _ = timed("nand before release", 1, lambda: ctx.nand(a, b))
     sizes = {f: t.numel() * t.element_size()
-             for f, t in vars(ctx.keys).items()}
+             for f, t in vars(ctx.keys).items() if t.numel()}
     key_bytes = sum(sizes.values())
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
@@ -696,6 +709,210 @@ def phase_toy8(ctx, sk, gate_rate: float, tag: str) -> int:
             raise AssertionError("TOY8 scan mode differs from the loop")
     log("TOY8: the scan mode's state equals the loop's as uint32")
     return total
+
+
+def phase_ntt(ctx, sk, ek, p5, tag: str) -> int:
+    """17. The ntt backend on the card: a NAND equal as uint32 to the same
+    call on the CPU at TINY, TINY_K2, PALLAS_BG10 (8 rows) and
+    tfhepp_128bit (2 rows); at tfhepp_128bit, batch 4096, one NAND on
+    phase 5's inputs with 0 decrypt errors and no K1 launch, its rate,
+    peak memory and phase distance to the exact path; an ntt context holds
+    no bk_ext, and release/prepare_backend restore its bk_ntt. Returns
+    the K1 launches of the phase's ntt calls (0)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import cufhe_tpu_torch as T
+    from cufhe_tpu_torch import golden as G
+    from cufhe_tpu_torch.benchmarks.noise import centered_phases
+    from cufhe_tpu_torch.ops import blind_rotate as BR
+    from cufhe_tpu_torch.ops import bootstrap as B
+    from cufhe_tpu_torch.torus import from_u32, to_u32
+
+    nand = G.GATE_CONSTANTS["nand"]
+    launched = 0
+
+    def run(what, fn):
+        """timed(what, 0, fn): no K1 launch allowed; the count it read is
+        kept."""
+        nonlocal launched
+        out = timed(what, 0, fn)
+        launched += BR.blind_rotate_cuda.launches
+        return out
+    bits0, bits1 = [0, 1, 0, 1, 1, 0, 1, 1], [0, 0, 1, 1, 1, 1, 0, 1]
+    for i, params in enumerate((T.TINY, T.TINY_K2, T.PALLAS_BG10)):
+        tsk = G.keygen(params, seed=600 + i)
+        tek = G.make_eval_key(tsk, seed=610 + i)
+        rng = np.random.default_rng(620 + i)
+        h0, h1 = (G.encrypt_bit_batch(x, tsk, rng) for x in (bits0, bits1))
+        card, _ = run(f"ntt nand at {params.name}", lambda: T.Context(
+            tek, "ntt").nand(T.Ctxt(from_u32(h0, DEV), 0),
+                             T.Ctxt(from_u32(h1, DEV), 0)))
+        cpu = T.Context(tek, "ntt", device="cpu").nand(
+            T.Ctxt(from_u32(h0), 0), T.Ctxt(from_u32(h1), 0))
+        if not np.array_equal(to_u32(card.data), to_u32(cpu.data)):
+            raise AssertionError(f"ntt nand at {params.name}: the card "
+                                 f"differs from the CPU")
+        if params is T.TINY and T.decrypt_bits(card, tsk).tolist() != \
+                [1 - (x & y) for x, y in zip(bits0, bits1)]:
+            raise AssertionError("ntt nand at TINY decrypts wrong")
+        log(f"ntt nand at {params.name}, 8 rows: card equal to the CPU as "
+            f"uint32, 0 kernel launches")
+
+    bits0, bits1, a, b, exact, _, gate_rate = p5
+    t0 = time.perf_counter()
+    nctx = T.Context(ek, "ntt")
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    if nctx.keys.bk_ext.numel():
+        raise AssertionError("an ntt context holds bk_ext")
+    cpu_keys = dataclasses.replace(nctx.keys, **{
+        f.name: getattr(nctx.keys, f.name).cpu()
+        for f in dataclasses.fields(nctx.keys)})
+    two, _ = run("ntt nand, 2 rows", lambda: B.gate_lvl0(
+        nand, a.data[:2], b.data[:2], nctx.keys, ek.params, "ntt"))
+    t0 = time.perf_counter()
+    two_cpu = B.gate_lvl0(nand, a.data[:2].cpu(), b.data[:2].cpu(), cpu_keys,
+                          ek.params, "ntt")
+    if not np.array_equal(to_u32(two), to_u32(two_cpu)):
+        raise AssertionError("ntt nand at tfhepp_128bit: the card differs "
+                             "from the CPU")
+    log(f"ntt nand at {ek.params.name}, 2 rows: card equal to the CPU as "
+        f"uint32 (CPU {time.perf_counter() - t0:.1f} s; key preparation "
+        f"{prep_s:.1f} s)")
+
+    torch.cuda.reset_peak_memory_stats()
+    out, dt = run("ntt nand at batch 4096", lambda: nctx.nand(a, b))
+    errors = int(np.sum(T.decrypt_bits(out, sk) != 1 - (bits0 & bits1)))
+    diff = centered_phases(out, sk) - centered_phases(exact, sk)
+    diff = (diff + (1 << 31)) % (1 << 32) - (1 << 31)
+    log(f"ntt nand at batch {BATCH}, {ek.params.name}, phase 5's inputs: "
+        f"decrypt errors {errors}, 0 kernel launches; {BATCH / dt:.2f} "
+        f"gates/s ({dt * 1e3:.1f} ms per batch, "
+        f"{100 * BATCH / dt / gate_rate:.2f} % of phase 5), peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB {tag}")
+    log(f"  phase distance to the exact path's output: max "
+        f"2^{np.log2(max(np.abs(diff).max(), 1)):.2f}, std "
+        f"2^{np.log2(max(diff.std(), 1)):.2f}, beside mu = 2^29")
+    if errors:
+        raise AssertionError(f"ntt nand: {errors} decrypt errors")
+
+    few = (T.Ctxt(a.data[:4], 0), T.Ctxt(b.data[:4], 0))
+    before, _ = run("ntt nand, 4 rows", lambda: nctx.nand(*few))
+    nctx.release_keys(("ntt",))
+    if nctx.keys.bk_ntt.numel():
+        raise AssertionError("release_keys kept bk_ntt")
+    try:
+        nctx.nand(*few)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("an ntt gate on a released bk_ntt ran")
+    nctx.prepare_backend(ek, "ntt")
+    after, _ = run("ntt nand after prepare_backend",
+                   lambda: nctx.nand(*few))
+    if not torch.equal(after.data, before.data) or nctx.keys.bk_ext.numel():
+        raise AssertionError("prepare_backend(ek, 'ntt') did not restore "
+                             "the ntt key alone")
+    log(f"ntt key lifecycle: no bk_ext; release_keys(('ntt',)) makes a gate "
+        f"raise ValueError, prepare_backend(ek, 'ntt') restores bk_ntt "
+        f"({nctx.keys.bk_ntt.numel() * 8 / 1e6:.1f} MB with its Shoup "
+        f"companion), the gate bit-exact again")
+    return launched
+
+
+def phase_mesh(ctx, sk, ek, p5, adder, tag: str) -> int:
+    """18. The mesh on one card: phase 5's chain on data_mesh() (one shard)
+    and on two shards of cuda:0, equal to phase 5 as uint32 with one
+    launch per shard per gate; on two shards the ripple adder
+    (run_schedule), an 8-bit IntContext.add at INT_BATCH and a feedback
+    circuit through run_schedule_loop, each equal to the plain context;
+    no second key set. Returns the K1 launches of the mesh runs."""
+    import numpy as np
+    import torch
+    import cufhe_tpu_torch as T
+    from cufhe_tpu_torch.bench import time_nand_chain
+    from cufhe_tpu_torch.models.integers import IntContext, encrypt_uint
+    from cufhe_tpu_torch.parallel import data_mesh
+    from cufhe_tpu_torch.runtime import (CircuitBuilder, run_schedule,
+                                         run_schedule_loop)
+    from cufhe_tpu_torch.runtime import executor as EX
+
+    bits0, bits1, a, b, _, chain_out, gate_rate = p5
+    mesh1 = data_mesh()
+    if mesh1.size != 1 or torch.cuda.device_count() != 1:
+        raise AssertionError(f"data_mesh() has {mesh1.size} devices")
+    key_bytes = sum(t.numel() * t.element_size()
+                    for t in vars(ctx.keys).values())
+    launched, rates, ctxs = 0, {}, {}
+    for name, mesh in (("mesh-1", mesh1),
+                       ("mesh-2", data_mesh(["cuda:0", "cuda:0"]))):
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        mctx = ctxs[name] = T.Context(ek, mesh=mesh)
+        torch.cuda.synchronize()
+        grew = torch.cuda.memory_allocated() - held
+        if mctx._dev_keys or grew > 1.5 * key_bytes:
+            raise AssertionError(f"{name}: a second key set ({grew} bytes "
+                                 f"for keys of {key_bytes})")
+        gates = 1 + ITERS * REPS
+
+        def chain():
+            return time_nand_chain(mctx, mctx.nand(a, b), b, ITERS, REPS)
+        (out, times), _ = timed(f"{name} chain", mesh.size * gates, chain)
+        launched += mesh.size * gates
+        if not torch.equal(out.data, chain_out.data):
+            raise AssertionError(f"{name}: the chain differs from phase 5")
+        rates[name] = BATCH / statistics.median(times)
+        log(f"{name} ({mesh.size} shard(s) on cuda:0): phase 5's chain of "
+            f"{gates} NANDs at batch {BATCH} equal as uint32, "
+            f"{mesh.size * gates} kernel launches ({mesh.size} a gate); "
+            f"{rates[name]:.2f} gates/s, {100 * rates[name] / gate_rate:.2f}"
+            f" % of phase 5 (reps {[round(t * 1e3, 1) for t in times]} ms); "
+            f"context memory {grew / 1e6:.1f} MB for {key_bytes / 1e6:.1f} "
+            f"MB of keys {tag}")
+    m2 = ctxs["mesh-2"]
+
+    sched, cts, plain_outs = adder
+    planned = EX.plan_rotations(EX.schedule_steps(ctx, sched, cts[0].batch))
+    outs, _ = timed("mesh-2 ripple adder", 2 * planned,
+                    lambda: run_schedule(m2, sched, cts))
+    launched += 2 * planned
+    if not all(torch.equal(o.data, w.data) for o, w in zip(outs,
+                                                            plain_outs)):
+        raise AssertionError("mesh-2 ripple adder differs from phase 12")
+    rng = np.random.default_rng(21)
+    x, y = (encrypt_uint([int(v) for v in rng.integers(0, 256, INT_BATCH)],
+                         8, sk, rng=rng) for _ in range(2))
+    got, _ = timed("mesh-2 8-bit add", 16, lambda: IntContext(m2).add(x, y))
+    launched += 16
+    if not torch.equal(got.digits, IntContext(ctx).add(x, y).digits):
+        raise AssertionError("mesh-2 8-bit add differs from the plain one")
+    cb = CircuitBuilder()
+    sel, xin = cb.input(), cb.input()
+    one = cb.const(1)
+    cb.output(cb.gate("mux", sel, cb.gate("nand", xin, one), one))
+    loop = cb.compile()
+    ins = [T.encrypt_bits(rng.integers(0, 2, INT_BATCH), sk, rng)
+           for _ in range(2)]
+    per_cycle = EX.plan_rotations(EX.schedule_steps(ctx, loop, INT_BATCH))
+    got, _ = timed("mesh-2 run_schedule_loop", 2 * 3 * per_cycle,
+                   lambda: run_schedule_loop(m2, loop, ins, 3, [(0, 1)]))
+    launched += 2 * 3 * per_cycle
+    want = run_schedule_loop(ctx, loop, ins, 3, [(0, 1)])
+    if not torch.equal(got[0].data, want[0].data):
+        raise AssertionError("mesh-2 run_schedule_loop differs from the "
+                             "plain loop")
+    log(f"mesh-2: the {len(sched.inputs) // 2}-bit ripple adder through "
+        f"run_schedule (phase 12's inputs), an 8-bit IntContext.add at "
+        f"batch {INT_BATCH} and a nand/mux feedback circuit through "
+        f"run_schedule_loop ({INT_BATCH} rows, 3 cycles) equal as uint32 to "
+        f"the plain context, 2 launches a rotation")
+    share = {k: 100 * v / gate_rate for k, v in rates.items()}
+    log(f"mesh layer on one card: mesh-1 {share['mesh-1']:.2f} %, mesh-2 "
+        f"{share['mesh-2']:.2f} % of phase 5's gates/s; scaling across cards is not measured (this machine "
+        f"has {torch.cuda.device_count()} card) {tag}")
+    return launched
 
 
 def phase_probe(info: dict, tag: str) -> dict:
@@ -1163,8 +1380,8 @@ def main() -> int:
     BR.blind_rotate_cuda.launches = 0
     a = T.encrypt_bits(bits0, sk, rng)  # on the card by default
     b = T.encrypt_bits(bits1, sk, rng)
-    out = ctx.nand(a, b)
-    out, times = time_nand_chain(ctx, out, b, ITERS, REPS)
+    first = ctx.nand(a, b)
+    out, times = time_nand_chain(ctx, first, b, ITERS, REPS)
     bits = T.decrypt_bits(out, sk)
     launches = BR.blind_rotate_cuda.launches
     gates = 1 + ITERS * REPS
@@ -1177,6 +1394,7 @@ def main() -> int:
         f"batch, reps {[round(t * 1e3, 1) for t in times]} ms) {tag}")
     if errors or launches != gates:
         raise AssertionError("main path failed its checks")
+    p5 = (bits0, bits1, a, b, first, out, gate_rate)
 
     # 6. one blind rotation at the main path's shape: kernel vs plain
     acc, abar = random_rotation_inputs(T.TFHEPP_128, BATCH, 400, dev)
@@ -1236,7 +1454,7 @@ def main() -> int:
         phase("10", phase_profile, ctx, sk, tag)
         # 11.-13. the presets, circuits and streams
         phase("11", phase_presets, eks, tag)
-        phase("12", phase_circuits, ctx, sk, gate_rate, tag)
+        adder = phase("12", phase_circuits, ctx, sk, gate_rate, tag)
         phase("13", phase_streams, ctx, sk, tag)
         # 15. and 16. integers and TOY8 on phase 4's context; each call's
         # launches are read from the counter, zeroed just before it
@@ -1244,6 +1462,9 @@ def main() -> int:
             "15", phase_integers, ictx, sk, gate_rate,
             ((x8, y8), (xs8, ys8)), gold_add8, tag)
     toy8_launches_run = phase("16", phase_toy8, ctx, sk, gate_rate, tag)
+    # 17. and 18. the ntt backend and the mesh, on phase 5's inputs
+    ntt_launches_run = phase("17", phase_ntt, ctx, sk, ek, p5, tag)
+    mesh_launches_run = phase("18", phase_mesh, ctx, sk, ek, p5, adder, tag)
     # 14. the key lifecycle, last: it swaps the context's preset
     phase("14", phase_lifecycle, ctx, sk, ek, eks["concrete"], tag)
     log("host seconds per phase: " + ", ".join(
@@ -1260,7 +1481,9 @@ def main() -> int:
          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
          "bound_by": bound_by, "library_ms": library_ms,
          "launches_integers": int_launches_run,
-         "launches_toy8": toy8_launches_run},
+         "launches_toy8": toy8_launches_run,
+         "launches_ntt": ntt_launches_run,
+         "launches_mesh": mesh_launches_run},
         {"name": "mxu_peak", "route": "cuda", "source": PROBE_SOURCE,
          "replaces": PROBE_REPLACES, **probe["mma_sync"]},
         {"name": "mxu_peak_wgmma", "route": "cuda", "source": WGMMA_SOURCE,

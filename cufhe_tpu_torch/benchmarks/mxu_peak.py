@@ -61,9 +61,10 @@ K1_STEP = (4096, 6144, 8192, 1, 4)
 
 
 def make_operands(rng: np.random.Generator, variant: str, M: int, K: int,
-                  W: int, S: int, device="cpu"):
+                  W: int, S: int, device="cuda"):
     """The JAX probe's operands from the same generator: A [S, M, K] in
-    [-100, 100), X [S, K, W] in [-32, 32), int8 (bf16 for 'bf16')."""
+    [-100, 100), X [S, K, W] in [-32, 32), int8 (bf16 for 'bf16'), on
+    `device`, by default the card."""
     A = rng.integers(-100, 100, (S, M, K), dtype=np.int64).astype(np.int8)
     X = rng.integers(-32, 32, (S, K, W), dtype=np.int64).astype(np.int8)
     dt = torch.bfloat16 if variant == "bf16" else torch.int8

@@ -13,6 +13,13 @@ ready event recorded after the work that made it, and every consumer (a
 gate on any stream, decrypt_bits) waits for it first, so chaining across
 streams needs no explicit synchronise. A Ctxt without an event is taken to
 have been made on the caller's current stream.
+
+Meshes (parallel.mesh.DataMesh, the reference's SetGPUNum): a context built
+with mesh= keeps its keys on every device of the mesh and its ciphertexts
+on the mesh's first device; every batched method cuts its batch into one
+row block per shard, runs each block on its device and joins the results
+there (parallel.mesh.data_parallel). Streams and a mesh exclude each
+other, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -26,6 +33,8 @@ import torch
 from .. import golden as G
 from ..ops import bootstrap as B
 from ..ops import keys as K
+from ..ops.bootstrap import resolve_backend
+from ..parallel import mesh as M
 from ..params import GateParams
 from ..torus import from_u32, to_u32
 from .gates import GATE_CONSTANTS
@@ -80,62 +89,48 @@ def _ready_event(t: torch.Tensor) -> Optional[torch.cuda.Event]:
     return ev
 
 
-#: the JAX package's backend names whose results are exact and equal to
-#: each other ("auto" picks one of them there); the port runs every one as
-#: its one exact path (the blind rotation of ops/blind_rotate.py)
-EXACT_BACKENDS = ("auto", "pallas", "conv", "toeplitz")
-
-
-def resolve_backend(backend: str) -> str:
-    """The port's path for a JAX backend name: "pallas" for every exact
-    backend; the ntt parity path and the reduced-precision "pallas3" are
-    not ported, and any other name is refused."""
-    if backend in EXACT_BACKENDS:
-        return "pallas"
-    if backend == "ntt":
-        raise NotImplementedError("the ntt backend is not ported yet "
-                                  "(ROADMAP queue 1 item 4)")
-    if backend == "pallas3":
-        raise NotImplementedError("backend 'pallas3' (reduced precision) is "
-                                  "left out of the port; use an exact "
-                                  f"backend, one of {EXACT_BACKENDS}")
-    raise ValueError(f"unknown backend {backend!r}; the port's exact "
-                     f"backends are {EXACT_BACKENDS}")
-
-
 class Context:
-    """Server-side evaluation context on one device.
+    """Server-side evaluation context on one device, or on a mesh.
 
-    Converts the evaluation key to limb form once and keeps it on `device`.
-    Every blind rotation on CUDA tensors runs through the CUDA kernel, on
-    CPU tensors through its plain PyTorch version. `backend` takes the JAX
-    package's names (resolve_backend) and is kept as given in
-    self.backend.
+    Converts the evaluation key once to the form its path reads and keeps
+    it on `device` (with a mesh: on every mesh device, the context living
+    on the first). `backend` takes the JAX package's names
+    (ops.bootstrap.resolve_backend) and is kept as given in self.backend:
+    every exact name runs the blind rotation of ops/blind_rotate.py (the
+    CUDA kernel on CUDA tensors, its plain version on CPU tensors), "ntt"
+    the RAINTT-prime path of ops/ntt.py on the same device.
     """
 
     #: DeviceKeys fields of each key form, the unit of release_keys and
-    #: prepare_backend: "pallas" is the blind rotation's key (the port's one
-    #: form of it, which every exact backend name selects), "ksk" every key
-    #: switch's
-    _BACKEND_KEY_FIELDS = {"pallas": ("bk_ext",),
-                           "ksk": ("ksk_limbs_sei", "sei_perm")}
+    #: prepare_backend (ops.keys.KEY_FORMS): "pallas" is the exact blind
+    #: rotation's key, "ntt" the ntt path's, "ksk" every key switch's
+    _BACKEND_KEY_FIELDS = K.KEY_FORMS
 
     def __init__(self, ek: G.EvalKey, backend: str = "auto", mesh=None, *,
                  device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError("multi-device meshes are not ported "
-                                      "yet (ROADMAP queue 1 item 3)")
-        resolve_backend(backend)
+        self._path = resolve_backend(backend)
         self.backend = backend
         self.params: GateParams = ek.params
-        self.keys = K.prepare_keys(ek, torch.device(device))
+        self.mesh = mesh
+        if mesh is not None:
+            device = mesh.device
+        self.keys = K.prepare_keys(ek, torch.device(device), (self._path,))
         self.device = self.keys.device      # "cuda" resolved to "cuda:0"
         self._dev_keys = {}
+        self._replicate()
 
     # -- key lifecycle ------------------------------------------------------
     @staticmethod
     def _key_form(backend: str) -> str:
         return "ksk" if backend == "ksk" else resolve_backend(backend)
+
+    def _replicate(self) -> None:
+        """The keys on every device of the mesh (ops on the context's own
+        device use its own set)."""
+        if self.mesh is not None:
+            self._dev_keys = {d: k for d, k in
+                              M.replicate(self.keys, self.mesh).items()
+                              if d != self.device}
 
     def release_keys(self, backends: Optional[Sequence[str]] = None) -> None:
         """Free device key material now (the DeleteBootstrappingKeyNTT /
@@ -144,15 +139,18 @@ class Context:
         must not hold two key sets.
 
         backends=None frees every key; an exact backend name such as
-        ("pallas",) frees the blind rotation's key, ("ksk",) the key
-        switch's. Work already enqueued is waited for first, and the
-        caching allocator hands the memory back to the device. Gates raise
-        ValueError until prepare_backend restores the keys."""
+        ("pallas",) frees the blind rotation's key, ("ntt",) the ntt
+        path's, ("ksk",) the key switch's. The copies on stream and mesh
+        devices are always dropped. Work already enqueued is waited for
+        first, and the caching allocator hands the memory back to the
+        device. Gates raise ValueError until prepare_backend restores the
+        keys."""
         names = (self._BACKEND_KEY_FIELDS if backends is None
                  else [self._key_form(b) for b in backends])
         fields = {f for b in names for f in self._BACKEND_KEY_FIELDS[b]}
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for dev in {self.device, *self._dev_keys}:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         self._dev_keys = {}
         self.keys = dataclasses.replace(self.keys, **{
             f: getattr(self.keys, f).new_empty((0,)) for f in fields})
@@ -161,37 +159,46 @@ class Context:
 
     def prepare_backend(self, ek: G.EvalKey, backend: str = "auto") -> None:
         """(Re-)build one key form from the host EvalKey on the context's
-        device (an exact backend name: the blind rotation's key; "ksk": the
-        key switch's), and the key switch's too if a release dropped it:
-        the inverse of release_keys."""
+        device (an exact backend name: the blind rotation's key; "ntt": the
+        ntt path's; "ksk": the key switch's), and the key switch's too if a
+        release dropped it, and copy the keys to the mesh's devices again:
+        the inverse of release_keys. A backend name also switches the
+        context's path to it."""
         if ek.params != self.params:
             raise ValueError(f"eval key is for {ek.params.name}, the context "
                              f"for {self.params.name}; use reinitialize")
         form = self._key_form(backend)
-        fields = set(self._BACKEND_KEY_FIELDS[form])
+        forms = {form}
         if not self.keys.ksk_limbs_sei.numel():
-            fields |= set(self._BACKEND_KEY_FIELDS["ksk"])
+            forms.add("ksk")
         self.keys = dataclasses.replace(
-            self.keys, **K.prepare_fields(ek, fields, self.device))
+            self.keys, **K.prepare_fields(ek, forms, self.device))
         self._dev_keys = {}
+        self._replicate()
         if form != "ksk":
             self.backend = backend
+            self._path = form
 
     def reinitialize(self, ek: G.EvalKey, backend: str = "auto") -> None:
         """Preset swap for a long-lived server: free every device key of
         the current parameter set, then prepare the keys of a new EvalKey
-        (its parameters may differ) on the same device. Ciphertexts of the
-        old set are invalid."""
-        resolve_backend(backend)
+        (its parameters may differ) on the same device, or mesh. Ciphertexts
+        of the old set are invalid."""
+        path = resolve_backend(backend)
         self.release_keys()
         self.params = ek.params
-        self.backend = backend
-        self.keys = K.prepare_keys(ek, self.device)
+        self.backend, self._path = backend, path
+        self.keys = K.prepare_keys(ek, self.device, (path,))
+        self._replicate()
 
     def _check_keys(self) -> None:
-        for f in dataclasses.fields(self.keys):
-            if not getattr(self.keys, f.name).numel():
-                raise ValueError(f"evaluation key {f.name} was released "
+        """Raise if a key the context's path reads was released: its
+        rotation's form and the key switch's (the other forms are never
+        built for it)."""
+        for f in (*self._BACKEND_KEY_FIELDS[self._path],
+                  *self._BACKEND_KEY_FIELDS["ksk"]):
+            if not getattr(self.keys, f).numel():
+                raise ValueError(f"evaluation key {f} was released "
                                  f"(Context.release_keys); restore it with "
                                  f"Context.prepare_backend(ek)")
 
@@ -203,9 +210,7 @@ class Context:
         if dev == self.device:
             return self.keys
         if dev not in self._dev_keys:
-            self._dev_keys[dev] = K.DeviceKeys(**{
-                f.name: getattr(self.keys, f.name).to(dev)
-                for f in dataclasses.fields(self.keys)})
+            self._dev_keys[dev] = M.to_device(self.keys, dev)
         return self._dev_keys[dev]
 
     @staticmethod
@@ -233,20 +238,47 @@ class Context:
             x.record_stream(cur)
         return x
 
-    def _run(self, stream, level: int, fn, *cts: Ctxt,
+    def _map(self, fn, batch: Sequence[torch.Tensor], shared=(),
+             out_dim: int = 0, dev: Optional[torch.device] = None,
+             keys: bool = True):
+        """fn(keys, *batch, *shared) on `dev` (by default the context's
+        device) with that device's keys; under a mesh, on every shard
+        (parallel.mesh.data_parallel): the batch tensors' rows split across
+        the mesh, `shared` copied to each shard's device, the outputs
+        joined along out_dim on the context's device. The one way every
+        batched method, IntContext and the executor reach the keys and the
+        mesh. keys=False (cmux) passes None for the keys and checks none."""
+        key_of = self._keys_on if keys else (lambda d: None)
+        if self.mesh is None:
+            return fn(key_of(dev or self.device), *batch, *shared)
+        keys = M.Replicated({d: key_of(d) for d in self.mesh.devices})
+        return M.data_parallel(fn, self.mesh, range(1, 1 + len(batch)),
+                               out_dim)(keys, *batch, *shared)
+
+    def _run(self, stream, level: int, fn, *cts: Ctxt, rows=(), shared=(),
              keys: bool = True) -> Ctxt:
-        """fn(keys, *data) on stream's lane (or the context's device) with
-        every input waited for; the result, with its ready event."""
+        """fn(keys, *data, *rows, *shared) on stream's lane (or the
+        context's device, or its mesh) with every input waited for; the
+        result, with its ready event. `rows` are per-row operands on the
+        context's device that travel with the ciphertext rows under a mesh,
+        `shared` operands every shard reads whole. keys=False (the linear
+        gates) reads no key and runs unsharded."""
         if stream is None:
             dev = self.device
             self._on_device(*cts)
+        elif self.mesh is not None:
+            raise ValueError("stream dispatch and mesh sharding are mutually "
+                             "exclusive on one Context")
         else:
             dev = stream.device
-        k = self._keys_on(dev) if keys else None
         caller = (torch.cuda.current_stream(dev) if dev.type == "cuda"
                   else None)
         with self._lane(stream):
-            out = fn(k, *(self._take(ct, dev, caller) for ct in cts))
+            data = [self._take(ct, dev, caller) for ct in cts]
+            if keys:
+                out = self._map(fn, [*data, *rows], shared, dev=dev)
+            else:
+                out = fn(None, *data)
             res = Ctxt(out, level, _ready_event(out))
         if stream is not None:
             stream.record(res)
@@ -299,15 +331,16 @@ class Context:
         fn = self._two_input(in0, in1)
         c = GATE_CONSTANTS[name]
         return self._run(stream, in0.level,
-                         lambda k, x, y: fn(c, x, y, k, self.params),
-                         in0, in1)
+                         lambda k, x, y: fn(c, x, y, k, self.params,
+                                            self._path), in0, in1)
 
     def gate_rows(self, c3_rows, in0: Ctxt, in1: Ctxt) -> Ctxt:
         """A mix of two-input gates in one batch: row i of c3_rows ([G, 3]
         from ops.bootstrap.encode_gate_consts_rows, an int32 tensor or a
         uint32 array) holds gate i's constants. G divides the batch B and
         the rows are tiled gate-major: ciphertext row r takes constant row
-        r // (B // G)."""
+        r // (B // G). Under a mesh the tiled constants are cut with the
+        ciphertext rows."""
         fn = self._two_input(in0, in1)
         c3 = self._tensor(c3_rows)
         Bsz = in0.batch
@@ -317,8 +350,9 @@ class Context:
                              f"batch {Bsz}, got {tuple(c3.shape)}")
         c3 = c3.repeat_interleave(Bsz // c3.shape[0], dim=0)
         return self._run(None, in0.level,
-                         lambda k, x, y: fn(c3, x, y, k, self.params),
-                         in0, in1)
+                         lambda k, x, y, c: fn(c, x, y, k, self.params,
+                                               self._path),
+                         in0, in1, rows=(c3,))
 
     def gate_chain(self, name, in0: Ctxt, in1: Ctxt,
                    depth: Optional[int] = None, stream=None) -> Ctxt:
@@ -344,7 +378,8 @@ class Context:
 
         def chain(k, out, y):
             for nm in names:
-                out = fn(GATE_CONSTANTS[nm], out, y, k, self.params)
+                out = fn(GATE_CONSTANTS[nm], out, y, k, self.params,
+                         self._path)
             return out
         return self._run(stream, in0.level, chain, in0, in1)
 
@@ -358,7 +393,7 @@ class Context:
         fn = B.mux_lvl0 if inc.level == 0 else B.mux_lvl1
         return self._run(stream, inc.level,
                          lambda k, c, x1, x0: fn(c, x1, x0, k, self.params,
-                                                 negate=negate),
+                                                 negate, self._path),
                          inc, in1, in0)
 
     def nmux(self, inc: Ctxt, in1: Ctxt, in0: Ctxt, stream=None) -> Ctxt:
@@ -381,40 +416,51 @@ class Context:
 
     def cmux(self, trgsw_dev: torch.Tensor, c1: TrlweCtxt,
              c0: TrlweCtxt) -> TrlweCtxt:
-        """c0 + TRGSW (external product) (c1 - c0), batched."""
-        return TrlweCtxt(B.cmux(trgsw_dev, c1.data, c0.data, self.params))
+        """c0 + TRGSW (external product) (c1 - c0), batched: the one exact
+        product on every backend (as the JAX package's `ntt` cmux runs its
+        exact Toeplitz product). Reads no evaluation key."""
+        return TrlweCtxt(self._map(
+            lambda _, x1, x0, tg: B.cmux(tg, x1, x0, self.params),
+            [c1.data, c0.data], shared=(trgsw_dev,), keys=False))
 
     def refresh(self, tr: TrlweCtxt) -> TrlweCtxt:
-        return TrlweCtxt(B.refresh(tr.data, self._keys_on(self.device),
-                                   self.params))
+        return TrlweCtxt(self._map(
+            lambda k, x: B.refresh(x, k, self.params, self._path), [tr.data]))
 
     def bootstrap_tlwe2trlwe(self, ct: Ctxt,
                              mu: Optional[int] = None) -> TrlweCtxt:
         mu = self.params.lvl1.mu if mu is None else mu
         return TrlweCtxt(self._run(None, ct.level, lambda k, x:
                                    B.bootstrap_tlwe2trlwe(x, mu, k,
-                                                          self.params),
+                                                          self.params,
+                                                          self._path),
                                    ct).data)
+
+    def _tv(self, tv) -> dict:
+        """A test vector as _run's operand: [N] read whole by every shard,
+        [B, N] cut with the ciphertext rows."""
+        t = self._tensor(tv)
+        return {"rows": (t,)} if t.dim() == 2 else {"shared": (t,)}
 
     def pbs_tlwe2trlwe(self, ct: Ctxt, tv) -> TrlweCtxt:
         """Programmable bootstrap, TLWE -> TRLWE: blind-rotate a custom test
         polynomial tv ([N] or [B, N], uint32 array or int32 tensor) by the
         input phase."""
-        t = self._tensor(tv)
-        return TrlweCtxt(self._run(None, ct.level, lambda k, x:
-                                   B.pbs_tlwe2trlwe(x, t, k, self.params),
-                                   ct).data)
+        return TrlweCtxt(self._run(None, ct.level, lambda k, x, t:
+                                   B.pbs_tlwe2trlwe(x, t, k, self.params,
+                                                    self._path),
+                                   ct, **self._tv(tv)).data)
 
     def programmable_bootstrap(self, ct: Ctxt, tv) -> Ctxt:
         """Custom-test-vector blind rotation, extraction, key switch to
         lvl0: the output encrypts tv[w] (negacyclically -tv[w - N]) where w
         is the mod-switched phase window of the input."""
-        t = self._tensor(tv)
-        return self._run(None, 0, lambda k, x: B.programmable_bootstrap(
-            x, t, k, self.params), ct)
+        return self._run(None, 0, lambda k, x, t: B.programmable_bootstrap(
+            x, t, k, self.params, self._path), ct, **self._tv(tv))
 
     def sample_extract_and_keyswitch(self, tr: TrlweCtxt) -> Ctxt:
-        out = B.sei_and_ks(tr.data, self._keys_on(self.device), self.params)
+        out = self._map(lambda k, x: B.sei_and_ks(x, k, self.params),
+                        [tr.data])
         return Ctxt(out, 0, _ready_event(out))
 
     # -- named gate shorthands (the reference's public gate list) ---------

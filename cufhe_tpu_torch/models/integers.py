@@ -190,8 +190,9 @@ class IntContext:
     Every method is a few batched pbs_many calls on the context's device:
     the digits of a word share one rotation wherever the JAX package's
     program does, and the carry chain of add/sub is a loop of one rotation
-    per digit. Each public method reads the context's keys before any
-    rotation, so a released key raises (Context.release_keys)."""
+    per digit. Every rotation runs on the context's backend, cut across
+    the devices of its mesh if it has one (_pbs); a released key raises
+    (Context.release_keys) before the first."""
 
     def __init__(self, ctx: Context, codec: IntCodec = IntCodec()):
         self.ctx = ctx
@@ -250,14 +251,15 @@ class IntContext:
     def _n0(self) -> int:
         return self.ctx.params.lvl0.dim
 
-    def _keys(self):
-        """The context's keys on its device (raises if released)."""
-        return self.ctx._keys_on(self.ctx.device)
-
-    def _pbs(self, t: torch.Tensor, tv: torch.Tensor, J: int, keys,
+    def _pbs(self, t: torch.Tensor, tv: torch.Tensor, J: int,
              theta: Optional[int] = None) -> torch.Tensor:
-        """pbs_many on the context's parameters: [J, rows, n0+1]."""
-        return B.pbs_many(t, tv, J, keys, self.ctx.params, theta=theta)
+        """pbs_many on the context's parameters, backend and keys, through
+        its mesh if it has one (the rows cut across the shards, tv read
+        whole by each): [J, rows, n0+1]. Raises if the keys were
+        released."""
+        p, path = self.ctx.params, self.ctx._path
+        return self.ctx._map(lambda k, x, v: B.pbs_many(
+            x, v, J, k, p, path, theta=theta), [t], (tv,), out_dim=1)
 
     def _check(self, *xs: IntCtxt):
         for x in xs[1:]:
@@ -305,8 +307,7 @@ class IntContext:
         and noise-preserving (the two's-complement step of sub)."""
         return self._plus(-y, (self.codec.base - 1) * self.codec.delta)
 
-    def _ripple(self, addends: Sequence[torch.Tensor], c0: torch.Tensor,
-                keys):
+    def _ripple(self, addends: Sequence[torch.Tensor], c0: torch.Tensor):
         """Carry chain over the digit axis of the addends (each [B, W,
         n0+1]): per digit, one rotation of t = sum of the addends' digits +
         carry gives (sum digit, carry). Returns (sums [B, W, n0+1],
@@ -316,7 +317,7 @@ class IntContext:
             t = c
             for a in addends:
                 t = t + a[:, d]
-            sc = self._pbs(t, self._tv_add, 2, keys, theta=1)
+            sc = self._pbs(t, self._tv_add, 2, theta=1)
             sums.append(sc[0])
             c = sc[1]
         return torch.stack(sums, dim=1), c
@@ -329,7 +330,7 @@ class IntContext:
         overflow bit; feed to digit_to_bool for the gate domain)."""
         self._check(x, y)
         c0 = self._trivial_digit(x.batch, carry_in)
-        sums, cout = self._ripple([x.digits, y.digits], c0, self._keys())
+        sums, cout = self._ripple([x.digits, y.digits], c0)
         return IntCtxt(sums, self.codec), cout
 
     def add(self, x: IntCtxt, y: IntCtxt) -> IntCtxt:
@@ -343,7 +344,7 @@ class IntContext:
         self._check(x, y)
         c0 = self._trivial_digit(x.batch, 1)
         sums, cout = self._ripple([x.digits, self._comp_digits(y.digits)],
-                                  c0, self._keys())
+                                  c0)
         return IntCtxt(sums, self.codec), cout
 
     def sub(self, x: IntCtxt, y: IntCtxt) -> IntCtxt:
@@ -370,13 +371,10 @@ class IntContext:
     def bool_to_digit(self, ct: Ctxt) -> torch.Tensor:
         """Gate-domain bool -> clean {0,1} digit (one bootstrap: sign LUT
         delta/2, then +delta/2), after the work that made `ct`."""
-        p = self.ctx.params
         half = self.codec.delta // 2
-        keys = self._keys()
-        data, = self.ctx._inputs(ct)
-        tv = torch.full((p.lvl1.n,), i32(half), dtype=torch.int32,
-                        device=self.ctx.device)
-        return self._plus(B.programmable_bootstrap(data, tv, keys, p), half)
+        tv = torch.full((self.ctx.params.lvl1.n,), i32(half),
+                        dtype=torch.int32, device=self.ctx.device)
+        return self._plus(self.ctx.programmable_bootstrap(ct, tv).data, half)
 
     def ge(self, x: IntCtxt, y: IntCtxt) -> Ctxt:
         """x >= y as a gate-domain bool (cost: one sub)."""
@@ -391,13 +389,12 @@ class IntContext:
         (one rotation for all digits of the batch) + an OR tree of
         bivariate rotations + a linear NOT."""
         self._check(x, y)
-        keys = self._keys()
         n0 = self._n0
         Bt, D = x.batch, x.ndigits
         t = (x.digits + self._comp_digits(y.digits)).reshape(Bt * D, n0 + 1)
-        ind = self._pbs(t, self._tv_ne, 1, keys,
+        ind = self._pbs(t, self._tv_ne, 1,
                         theta=0)[0].reshape(Bt, D, n0 + 1)
-        ne = self._or_digits([ind[:, i] for i in range(D)], keys)
+        ne = self._or_digits([ind[:, i] for i in range(D)])
         return self.digit_to_bool(self._plus(-ne, self.codec.delta))
 
     def eq_scalar(self, x: IntCtxt, value: int) -> Ctxt:
@@ -418,7 +415,7 @@ class IntContext:
         # linearly (mu0 = 2^29 is not invertible mod 2^32): one bootstrap
         # bridges cond to a clean {0,1} digit
         sdig = self.bool_to_digit(cond)                   # [B, n0+1]
-        out = self._select_digits(sdig, x.digits, y.digits, self._keys())
+        out = self._select_digits(sdig, x.digits, y.digits)
         return IntCtxt(out, self.codec)
 
     # -- signed views (two's complement) -----------------------------------
@@ -430,7 +427,7 @@ class IntContext:
         if self.codec.msg_bits == 1:
             top = self._comp_digits(x.digits[:, -1:])
         else:
-            top = self._pbs(x.digits[:, -1], self._tv_flip, 1, self._keys(),
+            top = self._pbs(x.digits[:, -1], self._tv_flip, 1,
                             theta=0)[0][:, None, :]
         return IntCtxt(torch.cat([x.digits[:, :-1], top], dim=1), x.codec)
 
@@ -481,7 +478,7 @@ class IntContext:
                       self.ctx.device)
         Bt, D = x.batch, x.ndigits
         flat = x.digits.reshape(Bt * D, n0 + 1)
-        out = self._pbs(flat, tv, 1, self._keys(), theta=0)[0]
+        out = self._pbs(flat, tv, 1, theta=0)[0]
         return IntCtxt(out.reshape(Bt, D, n0 + 1), codec)
 
     def shift_digits(self, x: IntCtxt, by: int) -> IntCtxt:
@@ -489,7 +486,7 @@ class IntContext:
         digits are trivial zeros. Free (no bootstraps)."""
         return IntCtxt(self._digit_shift(x.digits, by), x.codec)
 
-    def _select_digits(self, g, a, b_, keys):
+    def _select_digits(self, g, a, b_):
         """Digitwise g ? a : b_ where g is a CLEAN {0,1} digit [B, n0+1]
         and a/b_ are [B, W, n0+1]. Both rotation sets share one pbs_many
         call; the results sum linearly (exactly one term per digit is
@@ -507,11 +504,11 @@ class IntContext:
         else:
             t1 = (a * 2 + g[:, None, :]).reshape(Bt * W, n0 + 1)
             t0 = (b_ * 2 + ns[:, None, :]).reshape(Bt * W, n0 + 1)
-        r = self._pbs(torch.cat([t1, t0]), self._tv_pick, 1, keys,
+        r = self._pbs(torch.cat([t1, t0]), self._tv_pick, 1,
                       theta=0)[0]
         return (r[:Bt * W] + r[Bt * W:]).reshape(Bt, W, n0 + 1)
 
-    def _or_digits(self, cols: List[torch.Tensor], keys) -> torch.Tensor:
+    def _or_digits(self, cols: List[torch.Tensor]) -> torch.Tensor:
         """OR tree over clean {0,1} digit ciphertexts [B, n0+1]: each
         round batches every pair's t = u + v rotation into one pbs_many
         call."""
@@ -523,14 +520,14 @@ class IntContext:
                 pairs.append(cols[i] + cols[i + 1])
             if len(cols) % 2:
                 nxt.append(cols[-1])
-            ors = self._pbs(torch.cat(pairs), self._tv_or, 1, keys,
+            ors = self._pbs(torch.cat(pairs), self._tv_or, 1,
                             theta=0)[0]
             cols = list(ors.reshape(len(pairs), cols[0].shape[0],
                                     n0 + 1).unbind(0)) + nxt
         return cols[0]
 
     # -- mul ---------------------------------------------------------------
-    def _mul_rows(self, xd, yd, keys) -> torch.Tensor:
+    def _mul_rows(self, xd, yd) -> torch.Tensor:
         """Schoolbook product for msg_bits=1: per row r, one rotation of
         the bivariate AND of every x digit with y_r, placed at digit r of a
         2D-digit zero register and rippled into the accumulator."""
@@ -540,13 +537,13 @@ class IntContext:
         c0 = self._zeros(Bt, n0 + 1)
         for r in range(D):
             t = (xd + yd[:, r][:, None, :]).reshape(Bt * D, n0 + 1)
-            row = self._pbs(t, self._tv_and2, 1, keys, theta=0)[0]
+            row = self._pbs(t, self._tv_and2, 1, theta=0)[0]
             shifted = self._zeros(Bt, 2 * D, n0 + 1)
             shifted[:, r:r + D] = row.reshape(Bt, D, n0 + 1)
-            acc = self._ripple([acc, shifted], c0, keys)[0]
+            acc = self._ripple([acc, shifted], c0)[0]
         return acc
 
-    def _mul_rows_multi(self, xd, yd, keys) -> torch.Tensor:
+    def _mul_rows_multi(self, xd, yd) -> torch.Tensor:
         """Schoolbook product for msg_bits >= 2 (needs buf_bits >= 2m):
         each partial-product row is a bivariate LUT t = base*x_d + y_r
         whose ONE rotation yields both the lo and hi digits of x_d * y_r;
@@ -559,12 +556,12 @@ class IntContext:
         for r in range(D):
             t = (xd * self.codec.base
                  + yd[:, r][:, None, :]).reshape(Bt * D, n0 + 1)
-            lo, hi = self._pbs(t, self._tv_mul, 2, keys, theta=1)
+            lo, hi = self._pbs(t, self._tv_mul, 2, theta=1)
             lo_sh = self._zeros(Bt, 2 * D, n0 + 1)
             hi_sh = self._zeros(Bt, 2 * D, n0 + 1)
             lo_sh[:, r:r + D] = lo.reshape(Bt, D, n0 + 1)
             hi_sh[:, r + 1:r + 1 + D] = hi.reshape(Bt, D, n0 + 1)
-            acc = self._ripple([acc, lo_sh, hi_sh], c0, keys)[0]
+            acc = self._ripple([acc, lo_sh, hi_sh], c0)[0]
         return acc
 
     def mul(self, x: IntCtxt, y: IntCtxt) -> IntCtxt:
@@ -575,7 +572,7 @@ class IntContext:
         product), e.g. IntCodec(msg_bits=2, buf_bits=4)."""
         self._check(x, y)
         if self.codec.msg_bits == 1:
-            acc = self._mul_rows(x.digits, y.digits, self._keys())
+            acc = self._mul_rows(x.digits, y.digits)
         else:
             if self._tv_mul is None:
                 raise ValueError(
@@ -584,11 +581,11 @@ class IntContext:
                     f"digit-product phase space); use e.g. IntCodec("
                     f"msg_bits={self.codec.msg_bits}, "
                     f"buf_bits={2 * self.codec.msg_bits})")
-            acc = self._mul_rows_multi(x.digits, y.digits, self._keys())
+            acc = self._mul_rows_multi(x.digits, y.digits)
         return IntCtxt(acc, self.codec)
 
     # -- divmod --------------------------------------------------------------
-    def _div_steps(self, r, xd, yd, keys):
+    def _div_steps(self, r, xd, yd):
         """Restoring division for msg_bits=1 over the dividend digits xd
         (high digit first): per quotient bit, one (D+1)-digit trial
         subtraction and one digitwise select. r is the W=D+1 digit
@@ -603,12 +600,12 @@ class IntContext:
             # r2 = 2r + next dividend bit; the dropped top digit is always
             # an encryption of 0 (the loop invariant keeps r < 2^D)
             r2 = torch.cat([xd[:, i][:, None], r[:, :-1]], dim=1)
-            diff, ge = self._ripple([r2, cyW], c0, keys)
-            r = self._select_digits(ge, diff, r2, keys)
+            diff, ge = self._ripple([r2, cyW], c0)
+            r = self._select_digits(ge, diff, r2)
             qbits.append(ge)
         return torch.stack(qbits[::-1], dim=1), r
 
-    def _div_steps_multi(self, r, xd, yd, keys):
+    def _div_steps_multi(self, r, xd, yd):
         """Restoring division with radix-2^m quotient DIGITS: per step,
         the base-1 multiples j*y (exact ripple adds, once per call) are
         trial-subtracted from the shifted remainder in one batched
@@ -624,7 +621,7 @@ class IntContext:
         mults = [yW]
         c0 = self._zeros(Bt, n0 + 1)
         for _ in range(2, base):                   # j*y, exact W-digit adds
-            mults.append(self._ripple([mults[-1], yW], c0, keys)[0])
+            mults.append(self._ripple([mults[-1], yW], c0)[0])
         comp_flat = torch.stack([self._comp_digits(mj) for mj in mults]
                                 ).reshape((base - 1) * Bt, W, n0 + 1)
         one = self._trivial_digit(Bt, 1)
@@ -634,7 +631,7 @@ class IntContext:
             r2 = torch.cat([xd[:, i][:, None], r[:, :D]], dim=1)
             r2t = r2[None].expand(base - 1, Bt, W, n0 + 1).reshape(
                 (base - 1) * Bt, W, n0 + 1)
-            diffs, ges = self._ripple([r2t, comp_flat], c1, keys)
+            diffs, ges = self._ripple([r2t, comp_flat], c1)
             diffs = diffs.reshape(base - 1, Bt, W, n0 + 1)
             ges = ges.reshape(base - 1, Bt, n0 + 1)
             # linear, value in [0, base); the int32 sum wraps mod 2^32
@@ -646,7 +643,7 @@ class IntContext:
             es = torch.stack(e)                    # [base, Bt, n0+1]
             t = (cands * 2 + es[:, :, None, :]).reshape(base * Bt * W,
                                                         n0 + 1)
-            terms = self._pbs(t, self._tv_sel, 1, keys, theta=0)[0]
+            terms = self._pbs(t, self._tv_sel, 1, theta=0)[0]
             r = terms.reshape(base, Bt, W, n0 + 1).sum(dim=0,
                                                        dtype=torch.int32)
         return torch.stack(qds[::-1], dim=1), r
@@ -666,7 +663,6 @@ class IntContext:
         digits, the remainder register carried between them: bit-exact
         to the unsegmented divide (the JAX package's per-dispatch cap)."""
         self._check(x, y)
-        keys = self._keys()
         D = x.ndigits
         seg = segment if segment is not None else \
             int(os.environ.get("CUFHE_DIV_SEG", "0"))
@@ -678,7 +674,7 @@ class IntContext:
         hi = D
         while hi > 0:
             lo = max(0, hi - seg)
-            qc, r = steps(r, x.digits[:, lo:hi], y.digits, keys)
+            qc, r = steps(r, x.digits[:, lo:hi], y.digits)
             qparts.append(qc)                  # top chunk first
             hi = lo
         q = torch.cat(qparts[::-1], dim=1)
@@ -704,14 +700,14 @@ class IntContext:
             return torch.cat([cur[:, -k:], pad], dim=1)
         return cur
 
-    def _shift1(self, cur, sign: int, tv_sh1, keys):
+    def _shift1(self, cur, sign: int, tv_sh1):
         """One-BIT shift within radix-2^m digits (msg_bits >= 2): ONE
         rotation per digit produces (lo, carry) LUT pairs; the result is
         the linear sum lo_d + carry-from-neighbour, clean since the carry
         fills exactly the bit position the shift vacated."""
         n0 = self._n0
         Bt, D = cur.shape[0], cur.shape[1]
-        lo, hi = self._pbs(cur.reshape(Bt * D, n0 + 1), tv_sh1, 2, keys,
+        lo, hi = self._pbs(cur.reshape(Bt * D, n0 + 1), tv_sh1, 2,
                            theta=1)
         lo = lo.reshape(Bt, D, n0 + 1)
         hi = hi.reshape(Bt, D, n0 + 1)
@@ -734,7 +730,6 @@ class IntContext:
         if amount.batch != x.batch:
             raise ValueError("shift amount batch differs from operand batch")
         self._on_device(x, amount)
-        keys = self._keys()
         n0 = self._n0
         m = self.codec.msg_bits
         Bt, D, S = x.batch, x.ndigits, amount.ndigits
@@ -745,8 +740,8 @@ class IntContext:
             bits = [ad[:, i] for i in range(S)]
         else:
             # the JAX package's default theta for J = m outputs
-            outs = self._pbs(ad.reshape(Bt * S, n0 + 1), self._tv_bits, m,
-                             keys).reshape(m, Bt, S, n0 + 1)
+            outs = self._pbs(ad.reshape(Bt * S, n0 + 1), self._tv_bits,
+                             m).reshape(m, Bt, S, n0 + 1)
             bits = [outs[j, :, i]                  # bit i*m+j, little-endian
                     for i in range(S) for j in range(m)]
         cur = x.digits
@@ -758,11 +753,11 @@ class IntContext:
             q, r = divmod(1 << i, m)
             shifted = self._digit_shift(cur, sign * q)
             for _ in range(r):                     # r < m sub-digit steps
-                shifted = self._shift1(shifted, sign, tv_sh1, keys)
-            cur = self._select_digits(bit, shifted, cur, keys)
+                shifted = self._shift1(shifted, sign, tv_sh1)
+            cur = self._select_digits(bit, shifted, cur)
         if sat_bits:
-            sat = self._or_digits(sat_bits, keys)
-            cur = self._select_digits(sat, torch.zeros_like(cur), cur, keys)
+            sat = self._or_digits(sat_bits)
+            cur = self._select_digits(sat, torch.zeros_like(cur), cur)
         return IntCtxt(cur, self.codec)
 
     def shift_left(self, x: IntCtxt, amount: IntCtxt) -> IntCtxt:

@@ -10,9 +10,13 @@ bit-exact to it.
 and the paths built from the same pieces: mux/nmux (two rotations summed),
 per-row gate constants (gate_rows), custom test vectors (programmable
 bootstrapping), the rounded mod switch of PBSmanyLUT (pbs_many), CMUX on a
-user TRGSW, refresh and the TLWE -> TRLWE bootstrap. Every blind rotation
-goes through ops/blind_rotate.py: the CUDA kernel for CUDA tensors, its
-plain version for CPU tensors.
+user TRGSW, refresh and the TLWE -> TRLWE bootstrap.
+
+Every op that rotates takes the JAX package's `backend=` name
+(resolve_backend). The exact backends go through ops/blind_rotate.py: the
+CUDA kernel for CUDA tensors, its plain version for CPU tensors. "ntt" runs
+the RAINTT-prime external product of ops/ntt.py as torch ops on the
+tensors' device, and never the kernel.
 """
 from __future__ import annotations
 
@@ -23,11 +27,34 @@ import torch
 from ..params import GateParams
 from ..torus import i32, srl
 from . import blind_rotate as BR
+from . import ntt as NTT
 from .keys import DeviceKeys
 from .keyswitch import key_switch
-from .poly import (batched_test_vector, decompose, negacyclic_conv_toeplitz,
-                   rotate_by_xai, sample_extract_for_ks, sample_extract_index0,
+from .poly import (batched_test_vector, decompose, decompose_rotate_sub,
+                   negacyclic_conv_toeplitz, rotate_by_xai,
+                   sample_extract_for_ks, sample_extract_index0,
                    split_decomp_digits)
+
+#: the JAX package's backend names whose results are exact and equal to
+#: each other ("auto" picks one of them there); the port runs every one as
+#: its one exact path (the blind rotation of ops/blind_rotate.py)
+EXACT_BACKENDS = ("auto", "pallas", "conv", "toeplitz")
+
+
+def resolve_backend(backend: str) -> str:
+    """The port's path for a JAX backend name: "pallas" for every exact
+    backend, "ntt" for the RAINTT parity path; the reduced-precision
+    "pallas3" is left out of the port, and any other name is refused."""
+    if backend in EXACT_BACKENDS:
+        return "pallas"
+    if backend == "ntt":
+        return "ntt"
+    if backend == "pallas3":
+        raise NotImplementedError("backend 'pallas3' (reduced precision) is "
+                                  "left out of the port; use an exact "
+                                  f"backend, one of {EXACT_BACKENDS}")
+    raise ValueError(f"unknown backend {backend!r}; the port's backends are "
+                     f"{EXACT_BACKENDS} and 'ntt'")
 
 
 def _mod_switch(phase: torch.Tensor, nbit: int) -> torch.Tensor:
@@ -81,17 +108,18 @@ def _pre_add(in0, in1, ca, cb, off, dim):
 
 
 def blind_rotate(a: torch.Tensor, b: torch.Tensor, mu: int, keys: DeviceKeys,
-                 params: GateParams) -> torch.Tensor:
+                 params: GateParams, backend: str = "auto") -> torch.Tensor:
     """BlindRotate, batched. a: [B, n0] mask, b: [B] body (gate pre-add
     already applied). Returns the TRLWE accumulator [B, k+1, N] int32."""
     lp = params.lvl1
     bar = 2 * lp.n - _mod_switch(b, lp.nbit)
     acc = batched_test_vector(bar, mu, lp)
-    return blind_rotate_acc(acc, a, keys, params)
+    return blind_rotate_acc(acc, a, keys, params, backend)
 
 
 def blind_rotate_tv(a: torch.Tensor, b: torch.Tensor, tv: torch.Tensor,
                     keys: DeviceKeys, params: GateParams,
+                    backend: str = "auto",
                     theta: Optional[int] = None) -> torch.Tensor:
     """Blind rotation of a custom test polynomial tv ([N] or [B, N] int32):
     the returned TRLWE's constant slot carries tv at the mod-switched input
@@ -109,23 +137,50 @@ def blind_rotate_tv(a: torch.Tensor, b: torch.Tensor, tv: torch.Tensor,
     acc0[:, lp.k, :] = tv
     # bar == 2N (b = 0) wraps to rotation 0 under the mask
     acc = rotate_by_xai(acc0, bar & (2 * lp.n - 1), lp)
-    return blind_rotate_acc(acc, a, keys, params, theta=theta)
+    return blind_rotate_acc(acc, a, keys, params, backend, theta=theta)
 
 
 def blind_rotate_acc(acc: torch.Tensor, a: torch.Tensor, keys: DeviceKeys,
-                     params: GateParams,
+                     params: GateParams, backend: str = "auto",
                      theta: Optional[int] = None) -> torch.Tensor:
     """The n0-step CMUX loop from an explicit initial accumulator
     [B, k+1, N]. The mod switch of every mask coefficient is done here, on
     a's device, as abar [n0, B] int32: rounded (theta None or 0), or
-    rounded to multiples of 2^theta windows (PBSmanyLUT). The kernel is
-    the same either way."""
+    rounded to multiples of 2^theta windows (PBSmanyLUT). Every path reads
+    the same abar."""
     lp = params.lvl1
     if theta:
         abar = _mod_switch_round(a, lp.nbit, theta)
     else:
         abar = _mod_switch(a + (1 << (32 - 2 - lp.nbit)), lp.nbit)
-    return BR.blind_rotate(acc, abar.T.contiguous(), keys.bk_ext, params)
+    abar = abar.T.contiguous()
+    if resolve_backend(backend) == "ntt":
+        return blind_rotate_ntt(acc, abar, keys, params)
+    return BR.blind_rotate(acc, abar, keys.bk_ext, params)
+
+
+def blind_rotate_ntt(acc: torch.Tensor, abar: torch.Tensor, keys: DeviceKeys,
+                     params: GateParams) -> torch.Tensor:
+    """The `ntt` backend's n0-step loop (the reference's
+    USE_SMALL_NTT_MODULUS gate mode; JAX bootstrap.py:201-235): each step
+    lifts the digits to Z_p, transforms them, multiplies-accumulates with
+    the key's NTT (Shoup), transforms back and adds the result, switched
+    to the torus by mod_to_torus_jax, to the accumulator. acc [B, k+1, N]
+    int32, abar [n0, B] int32; returns a new accumulator."""
+    lp = params.lvl1
+    tabs = NTT.make_tables(lp.nbit)
+    for i in range(params.lvl0.dim):
+        dec = decompose_rotate_sub(acc, abar[i], lp).long()   # [B, I, N]
+        dntt = NTT.ntt_forward(torch.where(dec < 0, dec + NTT.P, dec), tabs)
+        bk_i = keys.bk_ntt[i].long()                          # [I, k+1, N]
+        sh_i = keys.bk_ntt_shoup[i].long() & 0xFFFFFFFF
+        # sum over I of dntt * bk mod p: each product is < p, so the int64
+        # sum of the (k+1)l terms is exact and one reduction equals the JAX
+        # package's chain of addmods
+        prod = NTT.pointwise_mul(dntt[:, :, None, :], bk_i, sh_i)
+        upd = NTT.ntt_inverse(prod.sum(dim=1) % NTT.P, tabs)
+        acc = acc + NTT.to_i32(NTT.mod_to_torus_jax(upd))
+    return acc
 
 
 def _key_switch_lvl1(x: torch.Tensor, keys: DeviceKeys, params: GateParams,
@@ -138,7 +193,8 @@ def _key_switch_lvl1(x: torch.Tensor, keys: DeviceKeys, params: GateParams,
 
 
 def gate_lvl0(gate_consts, in0: torch.Tensor, in1: torch.Tensor,
-              keys: DeviceKeys, params: GateParams) -> torch.Tensor:
+              keys: DeviceKeys, params: GateParams,
+              backend: str = "auto") -> torch.Tensor:
     """HomGate in br -> iks order: lvl0 inputs [B, n0+1], the pre-add fused
     into the mod switch, blind rotation, extraction, key switch back to
     lvl0. gate_consts is (ca, cb, om) as in golden.GATE_CONSTANTS, or
@@ -146,35 +202,36 @@ def gate_lvl0(gate_consts, in0: torch.Tensor, in1: torch.Tensor,
     ca, cb, off = _gate_coeffs(gate_consts, params.lvl0.mu)
     n0 = params.lvl0.dim
     a, b = _pre_add(in0, in1, ca, cb, off, n0)
-    acc = blind_rotate(a, b, params.lvl1.mu, keys, params)
+    acc = blind_rotate(a, b, params.lvl1.mu, keys, params, backend)
     # the extraction's index reversal lives in the KSK row permutation
     tlwe1 = sample_extract_for_ks(acc, params.lvl1)
     return key_switch(tlwe1, keys.ksk_limbs_sei, params)
 
 
 def gate_lvl1(gate_consts, in0: torch.Tensor, in1: torch.Tensor,
-              keys: DeviceKeys, params: GateParams) -> torch.Tensor:
+              keys: DeviceKeys, params: GateParams,
+              backend: str = "auto") -> torch.Tensor:
     """HomGate in iks -> br order: lvl1 inputs [B, k*N+1], the pre-add
     fused into the key switch, blind rotation, extraction to lvl1."""
     ca, cb, off = _gate_coeffs(gate_consts, params.lvl1.mu)
     n0 = params.lvl0.dim
     tlwe0 = _key_switch_lvl1(in0, keys, params, pre=(ca, cb, off, in1))
     acc = blind_rotate(tlwe0[:, :n0], tlwe0[:, n0], params.lvl1.mu, keys,
-                       params)
+                       params, backend)
     return sample_extract_index0(acc, params.lvl1)
 
 
 def mux_lvl0(inc, in1, in0, keys: DeviceKeys, params: GateParams,
-             negate: bool = False) -> torch.Tensor:
+             negate: bool = False, backend: str = "auto") -> torch.Tensor:
     """Mux(inc ? in1 : in0) on lvl0 inputs (nmux with negate): the
     AND(c, in1) and ANDNY(c, in0) rotations summed, b += mu (negated
     first for nmux), extraction, key switch."""
     n0 = params.lvl0.dim
     mu0, mu1 = params.lvl0.mu, params.lvl1.mu
     a1, b1 = _pre_add(inc, in1, 1, 1, i32(-mu0), n0)
-    acc1 = blind_rotate(a1, b1, mu1, keys, params)
+    acc1 = blind_rotate(a1, b1, mu1, keys, params, backend)
     a0, b0 = _pre_add(inc, in0, -1, 1, i32(-mu0), n0)
-    acc0 = blind_rotate(a0, b0, mu1, keys, params)
+    acc0 = blind_rotate(a0, b0, mu1, keys, params, backend)
     acc = acc1 + acc0
     if negate:
         acc = -acc
@@ -184,16 +241,16 @@ def mux_lvl0(inc, in1, in0, keys: DeviceKeys, params: GateParams,
 
 
 def mux_lvl1(inc, in1, in0, keys: DeviceKeys, params: GateParams,
-             negate: bool = False) -> torch.Tensor:
+             negate: bool = False, backend: str = "auto") -> torch.Tensor:
     """Mux on lvl1 inputs: two key switches with the pre-add fused, two
     rotations, the TRLWEs summed, extraction, b +- mu."""
     n0 = params.lvl0.dim
     d1 = params.lvl1.k * params.lvl1.n
     mu1 = params.lvl1.mu
     t1 = _key_switch_lvl1(inc, keys, params, pre=(1, 1, -mu1, in1))
-    acc1 = blind_rotate(t1[:, :n0], t1[:, n0], mu1, keys, params)
+    acc1 = blind_rotate(t1[:, :n0], t1[:, n0], mu1, keys, params, backend)
     t0 = _key_switch_lvl1(inc, keys, params, pre=(-1, 1, -mu1, in0))
-    acc0 = blind_rotate(t0[:, :n0], t0[:, n0], mu1, keys, params)
+    acc0 = blind_rotate(t0[:, :n0], t0[:, n0], mu1, keys, params, backend)
     out = sample_extract_index0(acc1 + acc0, params.lvl1)
     if negate:
         out = -out
@@ -227,19 +284,21 @@ def cmux(trgsw_limbs: torch.Tensor, c1: torch.Tensor, c0: torch.Tensor,
     return out
 
 
-def refresh(trlwe: torch.Tensor, keys: DeviceKeys,
-            params: GateParams) -> torch.Tensor:
+def refresh(trlwe: torch.Tensor, keys: DeviceKeys, params: GateParams,
+            backend: str = "auto") -> torch.Tensor:
     """TRLWE -> TRLWE noise refresh: extraction, key switch, blind rotation
     from the key-switched sample (golden.refresh)."""
     return bootstrap_tlwe2trlwe(sei_and_ks(trlwe, keys, params),
-                                params.lvl1.mu, keys, params)
+                                params.lvl1.mu, keys, params, backend)
 
 
 def bootstrap_tlwe2trlwe(tlwe0: torch.Tensor, mu: int, keys: DeviceKeys,
-                         params: GateParams) -> torch.Tensor:
+                         params: GateParams,
+                         backend: str = "auto") -> torch.Tensor:
     """Gate bootstrapping of lvl0 TLWEs [B, n0+1] to TRLWEs [B, k+1, N]."""
     n0 = params.lvl0.dim
-    return blind_rotate(tlwe0[:, :n0], tlwe0[:, n0], mu, keys, params)
+    return blind_rotate(tlwe0[:, :n0], tlwe0[:, n0], mu, keys, params,
+                        backend)
 
 
 def sei_and_ks(trlwe: torch.Tensor, keys: DeviceKeys,
@@ -250,24 +309,27 @@ def sei_and_ks(trlwe: torch.Tensor, keys: DeviceKeys,
 
 
 def pbs_tlwe2trlwe(tlwe0: torch.Tensor, tv: torch.Tensor, keys: DeviceKeys,
-                   params: GateParams) -> torch.Tensor:
+                   params: GateParams, backend: str = "auto") -> torch.Tensor:
     """Programmable bootstrap, TLWE -> TRLWE: blind-rotate a custom test
     polynomial tv ([N] or [B, N] int32) by the input phase."""
     n0 = params.lvl0.dim
-    return blind_rotate_tv(tlwe0[:, :n0], tlwe0[:, n0], tv, keys, params)
+    return blind_rotate_tv(tlwe0[:, :n0], tlwe0[:, n0], tv, keys, params,
+                           backend)
 
 
 def programmable_bootstrap(tlwe0: torch.Tensor, tv: torch.Tensor,
-                           keys: DeviceKeys,
-                           params: GateParams) -> torch.Tensor:
+                           keys: DeviceKeys, params: GateParams,
+                           backend: str = "auto") -> torch.Tensor:
     """Custom-test-vector blind rotation, extraction, key switch to lvl0.
     The output encrypts tv[w] (or -tv[w - N]) for the mod-switched phase
     window w of the input."""
-    return sei_and_ks(pbs_tlwe2trlwe(tlwe0, tv, keys, params), keys, params)
+    return sei_and_ks(pbs_tlwe2trlwe(tlwe0, tv, keys, params, backend), keys,
+                      params)
 
 
 def pbs_many(tlwe0: torch.Tensor, tv: torch.Tensor, J: int, keys: DeviceKeys,
-             params: GateParams, theta: Optional[int] = None) -> torch.Tensor:
+             params: GateParams, backend: str = "auto",
+             theta: Optional[int] = None) -> torch.Tensor:
     """Multi-output programmable bootstrap (PBSmanyLUT): one blind rotation
     with the mod switch rounded to 2^theta windows, so accumulator
     coefficient j is tv[w + j]; J negacyclic rotations by X^-j share one
@@ -281,7 +343,7 @@ def pbs_many(tlwe0: torch.Tensor, tv: torch.Tensor, J: int, keys: DeviceKeys,
     n0 = params.lvl0.dim
     lp = params.lvl1
     acc = blind_rotate_tv(tlwe0[:, :n0], tlwe0[:, n0], tv, keys, params,
-                          theta=theta)
+                          backend, theta=theta)
     B = acc.shape[0]
     rots = [acc] + [rotate_by_xai(acc, torch.full((B,), 2 * lp.n - j,
                                                   dtype=torch.int32,

@@ -14,7 +14,10 @@ test_intensive.cc:21-54, done statically by the native scheduler).
 
 Every step is one eager call: the JAX package's whole-schedule fusion and
 its tail-bucket padding exist only to bound XLA compiles and are left out
-(their padding duplicates rows and never changes a result).
+(their padding duplicates rows and never changes a result). Each step's
+gate call goes through Context._map, so it runs the context's backend and,
+under a mesh, cuts the step's rows across the mesh's devices; the batch
+must then divide by the mesh's size.
 """
 from __future__ import annotations
 
@@ -181,10 +184,12 @@ def plan_rotations(plans: List[List[tuple]]) -> int:
                for plan in plans for step in plan)
 
 
-def _run_step(regs: torch.Tensor, step: tuple, keys, params,
+def _run_step(ctx: Context, regs: torch.Tensor, step: tuple,
               level: int) -> None:
-    """Gather -> one batched gate program -> in-place scatter."""
+    """Gather -> one batched gate program (through ctx._map) -> in-place
+    scatter."""
     S, bsz, width = regs.shape
+    p, path = ctx.params, ctx._path
 
     def rows(idx):
         return regs.index_select(0, idx).reshape(-1, width)
@@ -193,12 +198,14 @@ def _run_step(regs: torch.Tensor, step: tuple, keys, params,
     if kind == "two":
         _, ina, inb, outs, c3 = step
         fn = B.gate_lvl0 if level == 0 else B.gate_lvl1
-        res = fn(c3.repeat_interleave(bsz, dim=0), rows(ina), rows(inb),
-                 keys, params)
+        res = ctx._map(lambda k, c, x, y: fn(c, x, y, k, p, path),
+                       [c3.repeat_interleave(bsz, dim=0), rows(ina),
+                        rows(inb)])
     elif kind == "mux":
         _, ic, i1, i0, outs, neg = step
         fn = B.mux_lvl0 if level == 0 else B.mux_lvl1
-        res = fn(rows(ic), rows(i1), rows(i0), keys, params, negate=neg)
+        res = ctx._map(lambda k, c, x1, x0: fn(c, x1, x0, k, p, neg, path),
+                       [rows(ic), rows(i1), rows(i0)])
     else:
         _, idx, outs, neg = step
         res = rows(idx)
@@ -207,7 +214,7 @@ def _run_step(regs: torch.Tensor, step: tuple, keys, params,
     regs.index_copy_(0, outs, res.reshape(-1, bsz, width))
 
 
-def _check_inputs(sched: Schedule, inputs: Sequence[Ctxt]):
+def _check_inputs(ctx: Context, sched: Schedule, inputs: Sequence[Ctxt]):
     if len(inputs) != len(sched.inputs):
         raise ValueError(f"circuit has {len(sched.inputs)} inputs, "
                          f"got {len(inputs)}")
@@ -219,6 +226,9 @@ def _check_inputs(sched: Schedule, inputs: Sequence[Ctxt]):
     for ct in inputs:
         if tuple(ct.data.shape) != (Bsz, width) or ct.level != lvl:
             raise ValueError("all inputs must share shape and level")
+    if ctx.mesh is not None and Bsz % ctx.mesh.size:
+        raise ValueError(f"batch {Bsz} is not divisible by the "
+                         f"{ctx.mesh.size}-device mesh")
     return Bsz, width, lvl
 
 
@@ -261,10 +271,10 @@ class _Program:
         return list(regs.index_select(0, rows).unbind(0))
 
     def run(self, ctx: Context, regs: torch.Tensor) -> torch.Tensor:
-        keys = ctx._keys_on(ctx.device)     # raises on released keys
+        ctx._check_keys()                   # raises on released keys
         for plan in self.plans:
             for step in plan:
-                _run_step(regs, step, keys, ctx.params, self.level)
+                _run_step(ctx, regs, step, self.level)
         return regs
 
 
@@ -279,7 +289,10 @@ def precompile_schedule(ctx: Context, sched: Schedule, batch: int,
                         level: int = 0) -> int:
     """Build the kernels run_schedule will launch (nothing to build on the
     CPU) and return the number of distinct step shapes of its plan: the
-    programs a per-shape CUDA-graph capture would record."""
+    programs a per-shape CUDA-graph capture would record. Under a mesh it
+    returns 0, as the JAX package's does."""
+    if ctx.mesh is not None:
+        return 0
     if ctx.device.type == "cuda":
         from .._build import load
         load()
@@ -300,7 +313,7 @@ def run_schedule(ctx: Context, sched: Schedule, inputs: Sequence[Ctxt],
     constants but no inputs has no batch shape and raises."""
     if not inputs and not sched.inputs and not sched.consts:
         return []
-    Bsz, _, lvl = _check_inputs(sched, inputs)
+    Bsz, _, lvl = _check_inputs(ctx, sched, inputs)
     prog = _Program(ctx, sched, Bsz, lvl)
     regs = prog.registers(ctx, [prog.slot[w] for w in sched.inputs],
                           ctx._inputs(*inputs))
@@ -323,7 +336,7 @@ def run_schedule_loop(ctx: Context, sched: Schedule, inputs: Sequence[Ctxt],
     steps, so `segment` is accepted and changes nothing."""
     if cycles < 1 or segment < 0:
         raise ValueError("need cycles >= 1 and segment >= 0")
-    Bsz, _, lvl = _check_inputs(sched, inputs)
+    Bsz, _, lvl = _check_inputs(ctx, sched, inputs)
     n_out = len(sched.outputs)
     for o, i in feedback:
         if not (0 <= o < n_out and 0 <= i < len(inputs)):

@@ -119,8 +119,9 @@ def test_keys_and_gate_equal_original(keys):
 
 
 def test_backend_names():
-    """Initialize takes the JAX package's exact backend names; ntt and
-    pallas3 are not ported, unknown names are refused."""
+    """Initialize takes the JAX package's backend names, ntt among them:
+    a gate then runs the ntt path and decrypts right; pallas3 is left
+    out, unknown names are refused."""
     cf.SetSeed(7)
     pri, pub = cf.PriKey(TINY), cf.PubKey(TINY)
     cf.KeyGen(pub, pri)
@@ -128,8 +129,14 @@ def test_backend_names():
     try:
         cf.Initialize(pub, backend="conv", device="cpu")
         assert cf._ctx.backend == "conv"
-        with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-            cf.Initialize(pub, backend="ntt", device="cpu")
+        cf.Initialize(pub, "ntt", device="cpu")
+        assert cf._ctx.backend == "ntt" and cf._ctx.keys.bk_ext.numel() == 0
+        a, b, out, pt = cf.Ctxt(), cf.Ctxt(), cf.Ctxt(), cf.Ptxt()
+        cf.Encrypt(a, cf.Ptxt(1), pri)
+        cf.Encrypt(b, cf.Ptxt(1), pri)
+        cf.Nand(out, a, b)
+        cf.Decrypt(pt, out, pri)
+        assert pt.message_ == 0
         with pytest.raises(NotImplementedError, match="pallas3"):
             cf.Initialize(pub, backend="pallas3", device="cpu")
         with pytest.raises(ValueError, match="unknown backend"):

@@ -466,3 +466,44 @@ def test_compat_gates_on_the_card(cuda):
     finally:
         cf.CleanUp()
         cf.SetSeed()
+
+
+@pytest.mark.parametrize("params", [P.TINY, P.TINY_K2], ids=lambda p: p.name)
+def test_ntt_on_the_card_equals_the_cpu(params, cuda):
+    """backend="ntt" on the card: the same torch ops as on the CPU, equal as
+    uint32, and no launch of the exact kernel."""
+    sk, ek = _keys(params, 111)
+    rng = np.random.default_rng(112)
+    bits0, bits1 = [0, 1, 0, 1, 1, 0, 1, 1], [0, 0, 1, 1, 1, 1, 0, 1]
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        ctx = Context(ek, "ntt", device=dev)
+        assert ctx.keys.bk_ext.numel() == 0
+        a, b = (encrypt_bits(x, sk, np.random.default_rng(113 + i),
+                             device=dev) for i, x in enumerate((bits0,
+                                                                bits1)))
+        before = BR.blind_rotate_cuda.launches
+        outs[dev] = ctx.nand(a, b)
+        assert BR.blind_rotate_cuda.launches == before
+    assert outs["cuda"].data.is_cuda
+    assert np.array_equal(to_u32(outs["cuda"].data), to_u32(outs["cpu"].data))
+    assert decrypt_bits(outs["cuda"], sk).tolist() == \
+        [1 - (x & y) for x, y in zip(bits0, bits1)]
+
+
+def test_two_shard_mesh_on_one_card_equals_plain(cuda):
+    """data_mesh() covers every card; a mesh of two shards on cuda:0 holds
+    the context's one key set, launches the kernel once per shard, and
+    equals the unsharded NAND as uint32."""
+    from cufhe_tpu_torch.parallel import data_mesh
+    assert data_mesh().size == torch.cuda.device_count()
+    sk, ek = _keys(P.TINY, 114)
+    rng = np.random.default_rng(115)
+    a, b = (encrypt_bits(rng.integers(0, 2, 64), sk, rng) for _ in range(2))
+    mesh_ctx = Context(ek, mesh=data_mesh(["cuda:0", "cuda:0"]))
+    assert mesh_ctx.device == torch.device("cuda", 0)
+    assert not mesh_ctx._dev_keys
+    before = BR.blind_rotate_cuda.launches
+    out = mesh_ctx.nand(a, b)
+    assert BR.blind_rotate_cuda.launches == before + 2
+    assert torch.equal(out.data, Context(ek).nand(a, b).data)

@@ -63,11 +63,16 @@ def test_nand_chain_five_deep(setup):
 
 
 def test_unported_paths_raise(setup):
-    """Meshes are still unported and name their ROADMAP item; unknown
-    gates, ragged batches and mixed levels are refused."""
+    """A CPU mesh context evaluates the gate, equal to the unsharded one,
+    and refuses a batch that does not divide; unknown gates, ragged
+    batches and mixed levels are refused."""
+    from cufhe_tpu_torch.parallel import data_mesh
     sk, ek, ctx, jctx, a, b = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 3"):
-        Context(ek, device="cpu", mesh=object())
+    mesh_ctx = Context(ek, mesh=data_mesh(["cpu"] * 2))
+    assert mesh_ctx.device.type == "cpu" and mesh_ctx.mesh.size == 2
+    assert torch.equal(mesh_ctx.nand(a, b).data, ctx.nand(a, b).data)
+    with pytest.raises(ValueError, match="divisible"):
+        mesh_ctx.nand(Ctxt(a.data[:3], 0), Ctxt(b.data[:3], 0))
     with pytest.raises(ValueError, match="unknown gate"):
         ctx.gate("nope", a, b)
     with pytest.raises(ValueError, match="batches differ"):
@@ -77,16 +82,17 @@ def test_unported_paths_raise(setup):
 
 
 @pytest.mark.parametrize("fn", ["Context", "encrypt_bits", "prepare_keys",
-                                "prepare_trgsw"])
+                                "prepare_trgsw", "make_operands"])
 def test_public_entry_points_default_to_the_card(fn):
-    """Keys and ciphertexts land on the card unless the caller asks for
-    the CPU, so Context(ek).nand(encrypt_bits(x, sk), ...) needs no device
-    argument (the GPU tests run it)."""
+    """Keys, ciphertexts and the probe's operands land on the card unless
+    the caller asks for the CPU, so Context(ek).nand(encrypt_bits(x, sk),
+    ...) needs no device argument (the GPU tests run it)."""
     import inspect
 
     import cufhe_tpu_torch as T
+    from cufhe_tpu_torch.benchmarks import mxu_peak as TM
     from cufhe_tpu_torch.ops import keys as TK
-    obj = getattr(T, fn, None) or getattr(TK, fn)
+    obj = getattr(T, fn, None) or getattr(TK, fn, None) or getattr(TM, fn)
     assert inspect.signature(obj).parameters["device"].default == "cuda"
 
 
@@ -103,9 +109,12 @@ def test_context_takes_the_reference_backend_names(backend, setup):
 
 
 def test_context_refuses_unported_and_unknown_backends(tiny_key):
+    """"ntt" builds a context holding only the ntt key form; the
+    reduced-precision pallas3 and unknown names are refused."""
     _, ek = tiny_key
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
-        Context(ek, "ntt", device="cpu")
+    ntt = Context(ek, "ntt", device="cpu")
+    assert ntt.backend == "ntt" and ntt.keys.bk_ntt.numel() > 0
+    assert ntt.keys.bk_ext.numel() == 0
     with pytest.raises(NotImplementedError, match="reduced precision"):
         Context(ek, backend="pallas3", device="cpu")
     for name in ("cuda", "cpu", "definitely-not-a-backend"):

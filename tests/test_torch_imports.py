@@ -23,10 +23,14 @@ from cufhe_tpu_torch import golden as G
 sk = G.keygen(T.TINY, seed=3)
 ek = G.make_eval_key(sk, seed=4)
 rng = np.random.default_rng(5)
+from cufhe_tpu_torch.parallel import data_mesh
 ctx = T.Context(ek, device="cpu")
-out = ctx.nand(T.encrypt_bits([0, 1, 0, 1], sk, rng, device="cpu"),
-               T.encrypt_bits([0, 0, 1, 1], sk, rng, device="cpu"))
-print(T.decrypt_bits(out, sk).tolist(), "jax" in sys.modules,
+a = T.encrypt_bits([0, 1, 0, 1], sk, rng, device="cpu")
+b = T.encrypt_bits([0, 0, 1, 1], sk, rng, device="cpu")
+out = ctx.nand(a, b)
+ntt_mesh = T.Context(ek, "ntt", mesh=data_mesh(["cpu"] * 2))
+print(T.decrypt_bits(out, sk).tolist(),
+      T.decrypt_bits(ntt_mesh.nand(a, b), sk).tolist(), "jax" in sys.modules,
       "cufhe_tpu" in sys.modules)
 """
 
@@ -40,12 +44,15 @@ def test_port_runs_a_gate_without_jax():
                           capture_output=True, text=True, timeout=300,
                           env=_clean_env())
     assert proc.returncode == 0, proc.stderr[-2000:]
-    assert proc.stdout.split("\n")[-2] == "[1, 1, 1, 0] False False"
+    assert proc.stdout.split("\n")[-2] == \
+        "[1, 1, 1, 0] [1, 1, 1, 0] False False"
 
 
 def test_no_jax_import_in_port_sources():
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
+    for new in ("parallel/mesh.py", "parallel/__init__.py", "ops/ntt.py"):
+        assert PKG / new in files, new
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):

@@ -87,21 +87,29 @@ def test_released_keys_raise_not_fault(keyed_bits):
 
 def test_unknown_and_unported_backends(keyed_bits):
     """The key lifecycle takes the names Context takes: the exact backends
-    ("conv" and "toeplitz" name the blind rotation's one key form), not
-    ntt or an unknown name."""
-    _, ek, *_ = keyed_bits
+    ("conv" and "toeplitz" name the blind rotation's one key form) and
+    ntt, whose key form is released, prepared and reinitialized on its
+    own; an unknown name is refused."""
+    sk, ek, bits0, bits1, a, b = keyed_bits
     ctx = Context(ek, device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):
         ctx.release_keys(("definitely-not-a-backend",))
     with pytest.raises(ValueError, match="unknown backend"):
         ctx.prepare_backend(ek, "definitely-not-a-backend")
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        ctx.release_keys(("ntt",))
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        ctx.prepare_backend(ek, "ntt")
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        ctx.reinitialize(ek, "ntt")
-    assert ctx.keys.bk_ext.numel() > 0       # nothing was released
+    ctx.release_keys(("ntt",))               # never built: nothing to free
+    assert ctx.keys.bk_ext.numel() > 0 and ctx.keys.bk_ntt.numel() == 0
+    ctx.prepare_backend(ek, "ntt")           # builds it and switches to it
+    assert ctx.backend == "ntt" and ctx.keys.bk_ntt.numel() > 0
+    via_ntt = ctx.nand(a, b)
+    assert np.array_equal(decrypt_bits(via_ntt, sk), _nand_ref(bits0, bits1))
+    ctx.release_keys(("ntt",))
+    with pytest.raises(ValueError, match="bk_ntt was released"):
+        ctx.nand(a, b)                       # no silent exact path
+    ctx.reinitialize(ek, "ntt")
+    assert ctx.keys.bk_ext.numel() == 0 and ctx.keys.bk_ntt.numel() > 0
+    assert torch.equal(ctx.nand(a, b).data, via_ntt.data)
+    ctx.reinitialize(ek)
+    assert ctx.keys.bk_ext.numel() > 0       # the exact path again
     ctx.release_keys(("conv",))
     assert ctx.keys.bk_ext.numel() == 0 and ctx.keys.sei_perm.numel() > 0
     ctx.prepare_backend(ek, "toeplitz")

@@ -34,7 +34,8 @@ def test_ref_matches_jax_pallas_case(variant, jax_probe, monkeypatch):
     assert name == f"pallas-{variant}-w{W}"
     assert macs == float(M) * K * W * S * steps
     # the port's operands from the same generator are the JAX probe's
-    tA, tX = TM.make_operands(np.random.default_rng(7), variant, M, K, W, S)
+    tA, tX = TM.make_operands(np.random.default_rng(7), variant, M, K, W, S,
+                              device="cpu")
     assert np.array_equal(tA.float().numpy(),
                           np.asarray(A.astype(jnp.float32)))
     assert np.array_equal(tX.float().numpy(),
@@ -48,7 +49,7 @@ def test_ref_semantics():
     """pure/write/bf16 are sum_s A_s X_s; place is steps * ((sum_{s<S-1}
     P_s) << 8 + P_{S-1}) mod 2^32, with the buffer starting at 0."""
     rng = np.random.default_rng(3)
-    A, X = TM.make_operands(rng, "pure", 16, 32, 8, 3)
+    A, X = TM.make_operands(rng, "pure", 16, 32, 8, 3, device="cpu")
     P = [A[s].long() @ X[s].long() for s in range(3)]
     total = (P[0] + P[1] + P[2]).numpy()
     for v in ("pure", "write"):
@@ -66,7 +67,7 @@ def test_ref_semantics():
 @pytest.mark.parametrize("instruction", TM.INSTRUCTIONS)
 def test_cuda_wrapper_rejects_cpu_tensors(instruction):
     A, X = TM.make_operands(np.random.default_rng(4), "pure", 128, 128, 128,
-                            3)
+                            3, device="cpu")
     before = dict(TM.mxu_peak_cuda.by_instruction)
     with pytest.raises(ValueError, match="CUDA device"):
         TM.mxu_peak_cuda(A, TM.prepare_x(X), "pure", 1, instruction)
