@@ -79,7 +79,15 @@ Phases, each raising on failure:
      two shards the ripple adder, an 8-bit IntContext.add and a
      run_schedule_loop circuit equal to the plain context; no second key
      set; the meshes' gates/s as a share of phase 5's (17 and 18 run
-     before 14).
+     before 14);
+ 19. the bench surface (benchmarks.golden_check, suite, phase_breakdown)
+     and the examples, on phase 4's context (run after 15, while phase
+     9's worker pool is up): golden_diff at tfhepp_128bit with 0
+     mismatched words (the oracle in the pool), every other suite section
+     at batch 256 with 0 errors and every margin above its floor, the
+     phase breakdown at batch 4096, and each of the six examples at TINY
+     plus 01_gates.py --full run in this process, each printing its
+     success line; the kernel's launches of the phase are counted.
 
 Prints the card line, a {"kernels": [...]} line, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -129,6 +137,20 @@ INT_BITS = 32
 INT_BATCH = 256
 TOY8_LANES = 64
 TOY8_CYCLES = 2
+#: phase 19: golden samples, the suite's batch, and each example with the
+#: success line of its JAX twin (tests/test_examples.py)
+SURFACE_SAMPLES = 2
+SURFACE_BATCH = 256
+EXAMPLES = (
+    ("01_gates.py", (), "all 192 decryptions correct"),
+    ("01_gates.py", ("--full",), "all 192 decryptions correct"),
+    ("02_adder_and_netlists.py", (), "additions OK"),
+    ("03_server_client_split.py", (), "all decryptions correct"),
+    ("04_encrypted_processor.py", (),
+     "all encrypted program runs match the plaintext interpreter"),
+    ("05_encrypted_lookup.py", (), "all encrypted lookups correct"),
+    ("06_encrypted_integers.py", (), "all encrypted integer results correct"),
+)
 
 
 def log(msg: str) -> None:
@@ -224,6 +246,9 @@ _EK = None
 def _pool_init(ek) -> None:
     global _EK
     _EK = ek
+    # phase 19's golden_diff reads the key of golden_check's own jobs
+    from cufhe_tpu_torch.benchmarks import golden_check
+    golden_check.pool_init(ek)
 
 
 def _g_gate(level: int, name: str, x, y):
@@ -915,6 +940,71 @@ def phase_mesh(ctx, sk, ek, p5, adder, tag: str) -> int:
     return launched
 
 
+def phase_surface(ctx, sk, ek, pool, info: dict, tag: str) -> int:
+    """19. The bench surface and the examples on the card, with the
+    kernel's launch count zeroed just before and read just after. Returns
+    the launches of the phase."""
+    import contextlib
+    import io
+    import math
+    import runpy
+    import numpy as np
+    import torch
+    from cufhe_tpu_torch.benchmarks import golden_check as GC
+    from cufhe_tpu_torch.benchmarks import phase_breakdown as PB
+    from cufhe_tpu_torch.benchmarks import suite as SU
+    from cufhe_tpu_torch.ops import blind_rotate as BR
+
+    torch.cuda.synchronize()
+    BR.blind_rotate_cuda.launches = 0
+    t0 = time.perf_counter()
+    mism, total = GC.golden_diff(ctx, sk, ek, np.random.default_rng(23),
+                                 nb=SURFACE_SAMPLES, pool=pool)
+    log(f"golden_check.golden_diff at {ctx.params.name}, {SURFACE_SAMPLES} "
+        f"samples of {', '.join(GC.GATES)} and mux: {mism} of {total} words "
+        f"mismatched ({time.perf_counter() - t0:.1f} s)")
+    if mism:
+        raise AssertionError("the card's gates differ from golden")
+
+    card = {"name": info["name"], "power_limit": info["power_limit"]}
+    run = SU.Run(ctx, sk, ek, SURFACE_BATCH, 1, card)
+    sections = [name for name in SU.SECTIONS if name != "golden"]
+    t0 = time.perf_counter()
+    if SU.run_sections(run, sections):
+        raise AssertionError("a suite section failed its checks")
+    log(f"suite sections {', '.join(sections)} at batch {SURFACE_BATCH}: "
+        f"{len(run.results)} records, 0 errors, margins above their floors "
+        f"({time.perf_counter() - t0:.1f} s) {tag}")
+
+    rec = PB.breakdown(ctx.keys, ctx.params, BATCH, ctx.device)
+    log(f"phase breakdown at batch {BATCH}, {ctx.params.name} (ms, CUDA "
+        f"events): {json.dumps(rec)} {tag}")
+    if not all(math.isfinite(v) and v >= 0 for k, v in rec.items()
+               if k.endswith("_ms")):
+        raise AssertionError("phase breakdown: a time is not a time")
+
+    for script, args, expect in EXAMPLES:
+        path = os.path.join(REPO, "cufhe_tpu_torch", "examples", script)
+        argv, sys.argv = sys.argv, [path, *args]
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(io.StringIO()) as out:
+                runpy.run_path(path, run_name="__main__")
+        finally:
+            sys.argv = argv
+        if expect not in out.getvalue():
+            raise AssertionError(f"{script} {' '.join(args)}: no success "
+                                 f"line in {out.getvalue()[-500:]!r}")
+        log(f"example {script} {' '.join(args)}: {expect!r} "
+            f"({time.perf_counter() - t0:.1f} s)")
+    torch.cuda.synchronize()
+    launches = BR.blind_rotate_cuda.launches
+    if launches == 0:
+        raise AssertionError("phase 19 launched no blind rotation")
+    log(f"phase 19: {launches} kernel launches")
+    return launches
+
+
 def phase_probe(info: dict, tag: str) -> dict:
     """7. Both probe kernels against their plain version, then the probe's
     path with the launch counts zeroed just before it. Returns the kernels
@@ -1461,6 +1551,9 @@ def main() -> int:
         int_launches_run = phase(
             "15", phase_integers, ictx, sk, gate_rate,
             ((x8, y8), (xs8, ys8)), gold_add8, tag)
+        # 19. the bench surface and the examples, golden in the pool
+        surface_launches_run = phase("19", phase_surface, ctx, sk, ek, pool,
+                                     info, tag)
     toy8_launches_run = phase("16", phase_toy8, ctx, sk, gate_rate, tag)
     # 17. and 18. the ntt backend and the mesh, on phase 5's inputs
     ntt_launches_run = phase("17", phase_ntt, ctx, sk, ek, p5, tag)
@@ -1483,7 +1576,8 @@ def main() -> int:
          "launches_integers": int_launches_run,
          "launches_toy8": toy8_launches_run,
          "launches_ntt": ntt_launches_run,
-         "launches_mesh": mesh_launches_run},
+         "launches_mesh": mesh_launches_run,
+         "launches_surface": surface_launches_run},
         {"name": "mxu_peak", "route": "cuda", "source": PROBE_SOURCE,
          "replaces": PROBE_REPLACES, **probe["mma_sync"]},
         {"name": "mxu_peak_wgmma", "route": "cuda", "source": WGMMA_SOURCE,

@@ -86,10 +86,12 @@ def run(ctx, sk, batch: int, seed: int = 11) -> dict:
 
 
 def main() -> int:
-    from ._common import bench_keys, device_record, require_cuda
+    from ._common import (device_record, load_or_make_bench_keys,
+                          require_cuda)
     from .. import Context
     require_cuda()
-    _, sk, ek = bench_keys(os.environ.get("AES_PARAMS", "tfhepp_128bit"))
+    sk, ek = load_or_make_bench_keys(
+        os.environ.get("AES_PARAMS", "tfhepp_128bit"))
     rec = run(Context(ek), sk, int(os.environ.get("AES_BATCH", "64")))
     rec["device"] = device_record()
     print(json.dumps(rec))

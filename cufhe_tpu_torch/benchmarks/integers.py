@@ -97,13 +97,15 @@ def main() -> int:
                  f"--buf-bits >= {2 * args.msg_bits} (bivariate "
                  "digit-product phase space)")
 
-    from ._common import bench_keys, device_record, require_cuda
+    from ._common import (device_record, load_or_make_bench_keys,
+                          require_cuda)
     from .. import Context
     from ..models.integers import (IntCodec, IntContext, decrypt_uint,
                                    encrypt_uint)
     require_cuda()
 
-    params, sk, ek = bench_keys(args.params)
+    sk, ek = load_or_make_bench_keys(args.params)
+    params = ek.params
     codec = IntCodec(msg_bits=args.msg_bits, buf_bits=args.buf_bits)
     ictx = IntContext(Context(ek, backend=args.backend), codec)
 

@@ -95,10 +95,11 @@ def main() -> int:
     ap.add_argument("--params", default="tfhepp_128bit")
     args = ap.parse_args()
 
-    from ._common import bench_keys, device_record, require_cuda
+    from ._common import (device_record, load_or_make_bench_keys,
+                          require_cuda)
     from .. import Context
     require_cuda()
-    _, sk, ek = bench_keys(args.params)
+    sk, ek = load_or_make_bench_keys(args.params)
     rec = run(Context(ek), sk, args.streams, args.chain, args.lanes,
               args.fused)
     rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9

@@ -67,8 +67,8 @@ def measure_noise(params, backend: str = "auto", batch: int = 2048,
     under mu (margin mu / (2 sqrt 2 std))."""
     from .. import Context, decrypt_bits, encrypt_bits
     if ek is None or sk is None:
-        from ._common import bench_keys
-        _, sk, ek = bench_keys(params.name)
+        from ._common import load_or_make_bench_keys
+        sk, ek = load_or_make_bench_keys(params.name)
     ctx = Context(ek, backend=backend, device=device)
     rng = np.random.default_rng(11)
     bits0, bits1 = rng.integers(0, 2, batch), rng.integers(0, 2, batch)
@@ -104,8 +104,8 @@ def measure_int_adder_noise(params, backend: str = "auto", batch: int = 256,
     from ..models.integers import IntCodec, IntContext, encrypt_uint
     from .integers import digit_noise, next_add_margin
     if ek is None or sk is None:
-        from ._common import bench_keys
-        _, sk, ek = bench_keys(params.name)
+        from ._common import load_or_make_bench_keys
+        sk, ek = load_or_make_bench_keys(params.name)
     codec = IntCodec(msg_bits=msg_bits)
     ictx = IntContext(Context(ek, backend=backend, device=device), codec)
     rng = np.random.default_rng(19)
@@ -138,8 +138,8 @@ def measure_cmux_tree_noise(params, backend: str = "auto", depth: int = 8,
     from .. import golden as G
     from ..torus import from_u32, to_u32
     if ek is None or sk is None:
-        from ._common import bench_keys
-        _, sk, ek = bench_keys(params.name)
+        from ._common import load_or_make_bench_keys
+        sk, ek = load_or_make_bench_keys(params.name)
     ctx = Context(ek, backend=backend, device=device)
     lp = params.lvl1
     mu = lp.mu
@@ -189,9 +189,11 @@ def main() -> int:
                          "this word size (batch 256)")
     args = ap.parse_args()
     from ..params import PRESETS
-    from ._common import bench_keys, device_record, require_cuda
+    from ._common import (device_record, load_or_make_bench_keys,
+                          require_cuda)
     require_cuda()
-    params, sk, ek = bench_keys(args.params)
+    sk, ek = load_or_make_bench_keys(args.params)
+    params = ek.params
     card = device_record()
     rec = measure_noise(params, args.backend, args.batch, ek, sk)
     ok = (margin_ok(rec["worst_gate_margin_sigmas"],

@@ -84,7 +84,8 @@ def run(ctx, sk, sched, progs, cycles: int, scan: bool, seed: int = 5):
 
 
 def main() -> int:
-    from ._common import bench_keys, device_record, require_cuda
+    from ._common import (device_record, load_or_make_bench_keys,
+                          require_cuda)
     from .. import Context
     from ..models import processor as TOY
     from ..runtime.executor import precompile_schedule
@@ -99,7 +100,8 @@ def main() -> int:
     cycles = int(os.environ.get("PROC_CYCLES", "4"))
     pname = os.environ.get("PROC_PARAMS", "tfhepp_128bit")
     scan = os.environ.get("PROC_SCAN", "0") == "1"
-    params, sk, ek = bench_keys(pname)
+    sk, ek = load_or_make_bench_keys(pname)
+    params = ek.params
 
     sched = TOY.build_cycle()[0].compile()
     ctx = Context(ek)

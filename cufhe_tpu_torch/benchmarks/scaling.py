@@ -83,9 +83,10 @@ def card_sharding_overhead() -> dict:
     from ..bench import expected_nand_chain
     from ..ops import blind_rotate as BR
     from ..parallel import data_mesh
-    from ._common import bench_keys, device_record
+    from ._common import device_record, load_or_make_bench_keys
 
-    params, sk, ek = bench_keys("tfhepp_128bit")
+    sk, ek = load_or_make_bench_keys("tfhepp_128bit")
+    params = ek.params
     ctxs = {"plain": Context(ek), "mesh_1": Context(ek, mesh=data_mesh()),
             "mesh_2": Context(ek, mesh=data_mesh(["cuda:0", "cuda:0"]))}
     rng = np.random.default_rng(7)

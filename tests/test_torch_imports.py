@@ -51,7 +51,13 @@ def test_port_runs_a_gate_without_jax():
 def test_no_jax_import_in_port_sources():
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
-    for new in ("parallel/mesh.py", "parallel/__init__.py", "ops/ntt.py"):
+    for new in ("parallel/mesh.py", "parallel/__init__.py", "ops/ntt.py",
+                "benchmarks/_common.py", "benchmarks/suite.py",
+                "benchmarks/golden_check.py", "benchmarks/phase_breakdown.py",
+                *(f"examples/{name}" for name in (
+                    "01_gates.py", "02_adder_and_netlists.py",
+                    "03_server_client_split.py", "04_encrypted_processor.py",
+                    "05_encrypted_lookup.py", "06_encrypted_integers.py"))):
         assert PKG / new in files, new
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
