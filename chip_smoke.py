@@ -9,20 +9,26 @@ Phases, each raising on failure:
      source), timed, with ptxas's registers and spills per kernel (a spill,
      a missing kernel or ptxas's C7508 warning, setmaxnreg ignored, fails
      the phase);
-  3. the blind-rotation kernel against its plain PyTorch version, bit for
-     bit, on random accumulators (8 and 129 rows) at ten parameter sets,
-     every published preset among them;
+  3. the blind-rotation kernels against their plain PyTorch version, bit
+     for bit, on random accumulators (8 and 129 rows) at ten parameter
+     sets, every published preset among them: the whole rotation, and the
+     rotate-and-decompose kernel alone (rotdec_cuda against rotdec_ref,
+     rotations 0, N-1, N and 2N-1 among the rows);
   4. Context(ek).nand (keys on the card) on the four input pairs at
      tfhepp_128bit
      against the port's NumPy gate oracle golden.gate_lvl0, as uint32;
   5. the main path: encrypt -> a chain of lvl0 NANDs on device-resident
      outputs at batch 4096, tfhepp_128bit -> decrypt, with 0 decrypt
-     errors and one kernel launch per gate; gates/s;
-  6. one blind rotation at the main path's shape through the kernel and
+     errors, one rotation launch per gate and n0 rotate-and-decompose
+     launches per gate; gates/s;
+  6. one blind rotation at the main path's shape through the kernels and
      through the plain version: equal, and both timed with CUDA events;
-     the kernel's int8 TMAC/s, its bound on the card, and one torch._int_mm
-     at the product's step shape times n0 as a yardstick (the port never
-     calls it);
+     the kernels' int8 TMAC/s, their bound on the card, and one
+     torch._int_mm at the product's step shape times n0 as a yardstick
+     (the port never calls it); the rotate-and-decompose kernel alone at
+     the main path's shape and at batch 1 (benchmarks.rotdec.measure: the
+     median of ROTDEC_LAUNCHES launches, warm and after an L2 flush), its
+     GB/s and its bytes bound, and its plain version's time;
   7. both tensor-core probe kernels, wgmma (csrc/mxu_peak_wgmma.cu) and
      mma.sync (csrc/mxu_peak.cu), against their plain version, bit for
      bit: all four variants at the small shape, pure and place at the full
@@ -38,7 +44,8 @@ Phases, each raising on failure:
      launch per blind rotation; gates/s of the lvl1 NAND and the mux;
  10. one lvl0 NAND at batch 4096 under torch.profiler: device time and
      launches of the product kernel, rotdec_kernel and the key switch, and
-     the device's idle share;
+     the device's idle share, with rotdec_kernel's time a launch against
+     its bound;
  11. every other published preset (tfhepp_128bit_bg8, tfhepp_80bit,
      cggi19, concrete, radix4_2048; phase 3 holds the kernel against its
      plain version there): a lvl0 NAND at batch 4096 with 0 decrypt
@@ -109,13 +116,13 @@ ITERS = 4
 REPS = 2
 SOURCE = "cufhe_tpu_torch/csrc/blind_rotate.cu"
 REPLACES = "cufhe_tpu/ops/pallas_br.py:762"
+#: the Pallas kernel's rotate-and-decompose closure
+ROTDEC_REPLACES = "cufhe_tpu/ops/pallas_br.py:428"
+#: launches of rotdec_kernel timed alone (the median is reported)
+ROTDEC_LAUNCHES = 25
 PROBE_SOURCE = "cufhe_tpu_torch/csrc/mxu_peak.cu"
 WGMMA_SOURCE = "cufhe_tpu_torch/csrc/mxu_peak_wgmma.cu"
 PROBE_REPLACES = "benchmarks/mxu_peak.py:116"
-#: the H100 SXM's dense int8 tensor-core rate (ops/s, a MAC is two) and its
-#: device-memory rate (bytes/s), NVIDIA's data sheet
-INT8_OPS_PER_S = 1979e12
-HBM_BYTES_PER_S = 3.35e12
 #: rows of each full-width result held against golden (seconds each)
 GOLDEN_ROWS = (0, BATCH - 1)
 WORKERS = 6
@@ -208,7 +215,10 @@ def ptxas_warnings(log_text: str) -> list:
 
 def bound(ops: float, nbytes: float):
     """(ms, "operations" or "bytes"): the least time the card could take
-    for `ops` int8 operations moving `nbytes` bytes of device memory."""
+    for `ops` int8 operations moving `nbytes` bytes of device memory, at
+    the H100's data-sheet rates (benchmarks/_common.py)."""
+    from cufhe_tpu_torch.benchmarks._common import (HBM_BYTES_PER_S,
+                                                   INT8_OPS_PER_S)
     ops_ms = ops / INT8_OPS_PER_S * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
@@ -1333,6 +1343,7 @@ def phase_profile(ctx, sk, tag: str) -> None:
     gate's shape), and the device's idle share over the gate."""
     import numpy as np
     import cufhe_tpu_torch as T
+    from cufhe_tpu_torch.benchmarks import rotdec as RD
     from cufhe_tpu_torch.ops.keyswitch import key_switch
     from cufhe_tpu_torch.ops.poly import sample_extract_for_ks
 
@@ -1368,6 +1379,12 @@ def phase_profile(ctx, sk, tag: str) -> None:
             f"of busy)")
     log(f"  key_switch alone at the gate's shape: {ks_busy:.3f} ms busy, "
         f"{sum(n for _, n in ks.values())} kernels")
+    ms, n = groups["rotdec_kernel"]
+    bound_us = bound(0, RD.rotdec_bytes(params, BATCH))[0] * 1e3
+    if n:
+        log(f"  rotdec_kernel in the gate: {ms / n * 1e3:.2f} us a launch "
+            f"against its {bound_us:.2f} us bytes bound "
+            f"({100 * bound_us / (ms / n * 1e3):.1f} %)")
     n0 = params.lvl0.dim
     for key in ("product (extprod_kernel)", "rotdec_kernel"):
         if groups[key][1] != n0:
@@ -1389,6 +1406,7 @@ def main() -> int:
     from cufhe_tpu_torch import golden as G
     from cufhe_tpu_torch.bench import (card, expected_nand_chain,
                                        time_nand_chain)
+    from cufhe_tpu_torch.benchmarks import rotdec as RD
     from cufhe_tpu_torch.models.integers import IntContext, encrypt_uint
     from cufhe_tpu_torch.ops import blind_rotate as BR
     from cufhe_tpu_torch.ops.keys import prepare_keys
@@ -1419,8 +1437,8 @@ def main() -> int:
         if "C7508" in line:
             raise AssertionError("ptxas ignored setmaxnreg (C7508)")
 
-    # 3. kernel vs plain version at ten parameter sets, 8 and 129 rows
-    max_err = 0
+    # 3. kernels vs plain versions at ten parameter sets, 8 and 129 rows
+    max_err = rotdec_err = 0
     presets = (T.PALLAS_TINY, T.PALLAS_TINY_K2, T.PALLAS_BG10, T.TINY,
                T.TFHEPP_128, *(T.PRESETS[name] for name in FULL_PRESETS))
     eks = {}
@@ -1442,6 +1460,19 @@ def main() -> int:
             if err != 0 or launched != 1:
                 raise AssertionError(f"kernel disagrees at {params.name}")
             max_err = max(max_err, err)
+            acc, abar_i = RD.random_inputs(params, rows, 500 + i, dev)
+            before = BR.rotdec_cuda.launches
+            got = BR.rotdec_cuda(acc, abar_i, params)
+            want = BR.rotdec_ref(acc, abar_i, params)
+            torch.cuda.synchronize()
+            err = int((got.int() - want.int()).abs().max())
+            launched = BR.rotdec_cuda.launches - before
+            log(f"rotdec vs plain {params.name}, {rows} rows: max_abs_err "
+                f"{err} (launches {launched})")
+            if err != 0 or launched != 1:
+                raise AssertionError(f"rotdec kernel disagrees at "
+                                     f"{params.name}")
+            rotdec_err = max(rotdec_err, err)
         del keys
 
     # 4. the gate vs the golden model at tfhepp_128bit
@@ -1468,21 +1499,25 @@ def main() -> int:
     bits0 = rng.integers(0, 2, BATCH)
     bits1 = rng.integers(0, 2, BATCH)
     BR.blind_rotate_cuda.launches = 0
+    BR.rotdec_cuda.launches = 0
     a = T.encrypt_bits(bits0, sk, rng)  # on the card by default
     b = T.encrypt_bits(bits1, sk, rng)
     first = ctx.nand(a, b)
     out, times = time_nand_chain(ctx, first, b, ITERS, REPS)
     bits = T.decrypt_bits(out, sk)
     launches = BR.blind_rotate_cuda.launches
+    rotdec_launches = BR.rotdec_cuda.launches
     gates = 1 + ITERS * REPS
     errors = int(np.sum(bits != expected_nand_chain(bits0, bits1, gates)))
     dt = statistics.median(times)
     gate_rate = BATCH / dt
     log(f"main path: {gates} chained NANDs at batch {BATCH}, "
         f"{T.TFHEPP_128.name}: decrypt errors {errors}, kernel launches "
-        f"{launches}; {BATCH / dt:.2f} gates/s ({dt * 1e3:.1f} ms per "
-        f"batch, reps {[round(t * 1e3, 1) for t in times]} ms) {tag}")
-    if errors or launches != gates:
+        f"{launches} (rotdec_kernel {rotdec_launches}); {BATCH / dt:.2f} "
+        f"gates/s ({dt * 1e3:.1f} ms per batch, reps "
+        f"{[round(t * 1e3, 1) for t in times]} ms) {tag}")
+    if (errors or launches != gates
+            or rotdec_launches != gates * T.TFHEPP_128.n0):
         raise AssertionError("main path failed its checks")
     p5 = (bits0, bits1, a, b, first, out, gate_rate)
 
@@ -1515,6 +1550,23 @@ def main() -> int:
         f"{step_ms:.3f} ms x {n0} steps = {library_ms:.1f} ms "
         f"({macs / library_ms / 1e9:.2f} TMAC/s) {tag}")
     del a8, b8, got, want
+    # the rotate-and-decompose kernel alone, at the main path's shape and
+    # at batch 1 (measure holds each case to rotdec_ref first)
+    rotdec = {rows: RD.measure(T.TFHEPP_128, rows, ROTDEC_LAUNCHES)
+              for rows in (BATCH, 1)}
+    acc, abar_i = RD.random_inputs(T.TFHEPP_128, BATCH, 5, dev)
+    _, rotdec_plain_ms = cuda_ms(
+        lambda: BR.rotdec_ref(acc, abar_i, T.TFHEPP_128), 5)
+    for rows, rec in rotdec.items():
+        log(f"rotdec_kernel at B={rows}, {T.TFHEPP_128.name}: median of "
+            f"{ROTDEC_LAUNCHES} launches {rec['warm_ms'] * 1e3:.2f} us "
+            f"({rec['warm_gb_s']:.1f} GB/s), after an L2 flush "
+            f"{rec['cold_ms'] * 1e3:.2f} us; bound {rec['bound_ms'] * 1e3:.3g}"
+            f" us (bytes: {rec['bytes'] / 1e6:.3g} MB), "
+            f"{100 * rec['warm_share_of_bound']:.1f} % of it {tag}")
+    log(f"rotdec_ref at B={BATCH}: {rotdec_plain_ms * 1e3:.1f} us (CUDA "
+        f"events) {tag}")
+    del acc, abar_i
 
     # 7. the tensor-core probe; 8. and 9. the bootstrapping paths
     seconds = {"1-6": time.perf_counter() - started}
@@ -1578,6 +1630,12 @@ def main() -> int:
          "launches_ntt": ntt_launches_run,
          "launches_mesh": mesh_launches_run,
          "launches_surface": surface_launches_run},
+        {"name": "rotdec", "route": "cuda", "source": SOURCE,
+         "replaces": ROTDEC_REPLACES, "launches": rotdec_launches,
+         "max_abs_err": rotdec_err, "ms": rotdec[BATCH]["warm_ms"],
+         "plain_ms": rotdec_plain_ms, "bound_ms": rotdec[BATCH]["bound_ms"],
+         "bound_by": "bytes", "library_ms": None,
+         "ms_cold": rotdec[BATCH]["cold_ms"], "ms_batch1": rotdec[1]["warm_ms"]},
         {"name": "mxu_peak", "route": "cuda", "source": PROBE_SOURCE,
          "replaces": PROBE_REPLACES, **probe["mma_sync"]},
         {"name": "mxu_peak_wgmma", "route": "cuda", "source": WGMMA_SOURCE,

@@ -110,6 +110,10 @@ def load() -> ctypes.CDLL:
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
             + [ctypes.c_uint, ctypes.c_void_p])
         lib.cufhe_blind_rotate.restype = ctypes.c_int
+        lib.cufhe_rotdec.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
+            + [ctypes.c_uint, ctypes.c_void_p])
+        lib.cufhe_rotdec.restype = ctypes.c_int
         lib.cufhe_mxu_peak.argtypes = (
             [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
             + [ctypes.c_void_p])

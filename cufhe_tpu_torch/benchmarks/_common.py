@@ -16,6 +16,11 @@ KEY_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
 #: one JSON record per line, appended by append_result
 RESULTS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "results.jsonl")
+#: the H100 SXM's dense int8 tensor-core rate (ops/s, a MAC is two) and its
+#: device-memory rate (bytes/s), NVIDIA's data sheet: the bounds the benches
+#: and chip_smoke.py hold kernel times against
+INT8_OPS_PER_S = 1979e12
+HBM_BYTES_PER_S = 3.35e12
 
 
 def key_cache_paths(pname: str) -> tuple:

@@ -8,15 +8,52 @@
 //
 // over a batch of B accumulators [B, k+1, N]. All torus arithmetic is
 // uint32_t, whose wrap is the reduction mod 2^32; the int32 tensors of the
-// caller are reinterpreted as uint32_t.
+// caller are reinterpreted as uint32_t. Two kernels per step, launched in
+// order on the caller's stream: rotdec_kernel, then extprod_kernel.
 //
-// Two kernels per step, launched in order on the caller's stream:
-//   rotdec_kernel  writes the gadget digits dec [B, I, N] int8, row
-//                  r = (j*l + d)*nd + dl (the Pallas kernel's rr);
-//   extprod_kernel acc[b,o,c] += sum_li (sum_{r,t} dec[b,r,t] *
-//                  L_li[r,o][N + c - t]) << 8*li, where L_li is limb li of
-//                  the extended generator ext = [-bk, bk] (prepare_bk_ext),
-//                  on the tensor cores (mma.sync m16n8k32 s8.s8.s32).
+// rotdec_kernel replaces the Pallas kernel's rotdec closure
+// (pallas_br.py:428-487). For each row (b, j < k+1) and coefficient t < N:
+//
+//   temp = (acc * X^abar)[b, j, t] - acc[b, j, t] + off            (uint32)
+//   dig_d = ((temp >> (32 - (d+1)*Bgbit)) & (Bg-1)) - Bg/2           d < l
+//   dec[b, (j*l + d)*nd + dl, t] = int8 sub-digit dl of dig_d       dl < nd
+//
+// (the last sub-digit takes the rest), the A operand of the product in
+// the Pallas kernel's row order rr. The TPU rotates with a ladder of nbit
+// static rolls because a per-row dynamic gather is slow there; here the
+// rotation is a gather out of shared memory.
+//
+// What bounds it on an H100: bytes. At tfhepp_128bit, B = 4096, a launch
+// reads 33.5 MB of acc and writes 25.2 MB of dec, 58.7 MB, 17.5 us at
+// 3.35 TB/s; its integer work (a dozen operations a coefficient and digit
+// row) is a few microseconds of issue, if little is spent around it. The
+// first version, a thread per coefficient with two 64-bit divisions by a
+// runtime value and one-byte stores N bytes apart, spent 77.5 us a launch
+// issuing instructions.
+//
+// What this version does about it: a block of kRotThreads threads owns
+// whole rows, kRotThreads * kRotQuads * 4 coefficients of them where the
+// row is long enough, so (b, j) costs one 32-bit division a thread. It
+// copies its rows, which are contiguous in acc, into shared memory with
+// 16-byte cp.async (every device-memory read a full 16-byte vector, all of
+// a thread's loads in flight at once) and reads the rotation meanwhile. A
+// thread then works on quads (4 coefficients) q = lane, lane + tpr, ... of
+// its row: its own quad and the two aligned quads that hold the rotated
+// window are 16-byte shared loads at consecutive addresses across the warp
+// (no bank conflict); the window's word shift, (-abar) mod 4, is the same
+// for the whole row. Each digit row of a quad is one 4-byte store, so a
+// warp writes 128 contiguous bytes a store. l and nd are template
+// arguments for the published sets, so the digit loops unroll:
+// rotdec_kernel<3, 1> is 288 SASS instructions against 536 for the
+// generic <0, 0> (cuobjdump -sass of the built library), and on an H100
+// the launch at tfhepp_128bit, B = 4096, went from about 38 us to 28 us
+// with that alone. A row is 4N bytes of shared memory: N <= 2^kRotMaxNbit (128 KB)
+// is held, larger N are refused with cudaErrorInvalidValue.
+//
+// extprod_kernel: acc[b,o,c] += sum_li (sum_{r,t} dec[b,r,t] *
+// L_li[r,o][N + c - t]) << 8*li, where L_li is limb li of the extended
+// generator ext = [-bk, bk] (prepare_bk_ext), on the tensor cores
+// (mma.sync m16n8k32 s8.s8.s32).
 //
 // The product as a GEMM, per step: M = B rows, K = I*N (r, t) contraction
 // bytes, W = (k+1)*4*N columns (o, limb, c). dec, as rotdec writes it, is
@@ -64,6 +101,7 @@
 // at tfhepp_128bit); cufhe_blind_rotate refuses any set where it is not.
 // wgmma, TMA, Karatsuba leaves and a persistent kernel that keeps acc on
 // chip across the n0 steps are later work.
+#include <climits>
 #include <cstddef>
 #include <cstdint>
 
@@ -73,7 +111,13 @@ namespace {
 
 constexpr int kLimbs = 4;
 constexpr int kLimbBits = 8;
-constexpr int kRotdecThreads = 256;
+
+// rotdec_kernel's tiling: threads per block, and quads (4 coefficients) per
+// thread wherever a row has at least kRotThreads * kRotQuads * 4 of them
+// (4 measured best of 1, 2, 4 and 8 on an H100: PERF.md).
+constexpr int kRotThreads = 256;
+constexpr int kRotQuads = 4;
+constexpr int kRotMaxNbit = 15;                    // a row of 128 KB
 
 // extprod_kernel's tiling
 constexpr int kBM = 128;                           // batch rows per block
@@ -103,49 +147,6 @@ struct Stage {
   static_assert(BK % 32 == 0 && kBytes % 16 == 0, "stage layout");
 };
 
-__global__ void rotdec_kernel(const uint32_t* __restrict__ acc,
-                              const int32_t* __restrict__ abar_i,
-                              int8_t* __restrict__ dec, int B, int N,
-                              int nbit, int kp1, int l, int Bgbit, int nd,
-                              int dbits, uint32_t off) {
-  const long long total = static_cast<long long>(B) * kp1 * N;
-  const int I = kp1 * l * nd;
-  const uint32_t mask = (1u << Bgbit) - 1u;
-  const int half = 1 << (Bgbit - 1);
-  const int dhalf = 1 << (dbits - 1);
-  const int dmask = (1 << dbits) - 1;
-  for (long long idx = blockIdx.x * static_cast<long long>(blockDim.x) +
-                       threadIdx.x;
-       idx < total; idx += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const int t = static_cast<int>(idx & (N - 1));
-    const long long bj = idx >> nbit;              // b * kp1 + j
-    const int j = static_cast<int>(bj % kp1);
-    const long long b = bj / kp1;
-    const uint32_t ab = static_cast<uint32_t>(abar_i[b]);
-    const uint32_t low = ab & static_cast<uint32_t>(N - 1);
-    const bool hi = (ab >> nbit) & 1u;
-    const uint32_t* row = acc + bj * N;
-    // acc * X^abar at coefficient t: a gather with a sign flip on wrap
-    const uint32_t x = row[(static_cast<uint32_t>(t) - low) & (N - 1)];
-    const bool neg = (static_cast<uint32_t>(t) < low) != hi;
-    const uint32_t temp = (neg ? 0u - x : x) - row[t] + off;
-    int8_t* out = dec + static_cast<size_t>(b) * I * N + t;
-    for (int d = 0; d < l; ++d) {
-      int dig = static_cast<int>((temp >> (32 - (d + 1) * Bgbit)) & mask) -
-                half;
-      for (int dl = 0; dl < nd; ++dl) {
-        int part = dig;                // the last sub-digit takes the rest
-        if (dl < nd - 1) {
-          part = ((dig + dhalf) & dmask) - dhalf;
-          dig = (dig - part) >> dbits;
-        }
-        out[static_cast<size_t>((j * l + d) * nd + dl) * N] =
-            static_cast<int8_t>(part);
-      }
-    }
-  }
-}
-
 // Byte offset of 16-byte chunk c of row r in an A tile of BK-byte rows: the
 // chunk index is XORed with the row, so for BK = 128 the 8 rows one
 // ldmatrix phase reads fall on 8 different bank groups.
@@ -174,6 +175,155 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// dec [B, I, N] int8 for one step: the rows (b, j) of acc [B, kp1, N]
+// rotated by X^abar_i[b], minus themselves, offset and decomposed. Block x
+// owns rows x * rows .. x * rows + rows-1 of the nrows = B * kp1, with
+// rows = kRotThreads >> tpr_log and 1 << tpr_log threads a row, and holds
+// them in shared memory (rows * N * 4 bytes). L and ND are l and nd where
+// they are known at compile time (the published sets), 0 where not.
+template <int L, int ND>
+__global__ void __launch_bounds__(kRotThreads)
+rotdec_kernel(const uint32_t* __restrict__ acc,
+              const int32_t* __restrict__ abar_i, int8_t* __restrict__ dec,
+              int nrows, int nbit, int tpr_log, int kp1, int l_rt, int Bgbit,
+              int nd_rt, int dbits, uint32_t off) {
+  extern __shared__ __align__(16) uint32_t srow[];
+  const int l = L ? L : l_rt;
+  const int nd = ND ? ND : nd_rt;
+  const int N = 1 << nbit;
+  const int rows = kRotThreads >> tpr_log;
+  const int row0 = blockIdx.x * rows;
+  const int here = min(rows, nrows - row0);
+  const uint32_t sbase = smem_addr(srow);
+  const uint32_t* src = acc + static_cast<size_t>(row0) * N;
+  for (int c = threadIdx.x; c < (here << (nbit - 2)); c += kRotThreads)
+    cp_async16(sbase + 16 * c, src + 4 * c, 16);
+  cp_async_commit();
+  const int rr = threadIdx.x >> tpr_log;
+  const int row = row0 + rr;
+  const int b = row / kp1;
+  const int j = row - b * kp1;
+  // read while the copy is in flight
+  const uint32_t ab = rr < here ? static_cast<uint32_t>(abar_i[b]) : 0u;
+  cp_async_wait<0>();
+  __syncthreads();
+  if (rr >= here) return;
+
+  const int lane = threadIdx.x & ((1 << tpr_log) - 1);
+  const int qmask = (N >> 2) - 1;
+  const uint32_t mask = (1u << Bgbit) - 1u;
+  const int half = 1 << (Bgbit - 1);
+  const int dhalf = 1 << (dbits - 1);
+  const int dmask = (1 << dbits) - 1;
+  const uint32_t low = ab & static_cast<uint32_t>(N - 1);
+  const bool hi = (ab >> nbit) & 1u;
+  const uint4* s4 = reinterpret_cast<const uint4*>(srow + (rr << nbit));
+  // the rotated window of quad q starts at word (4q - low) mod N: aligned
+  // quad (q - ceil(low/4)) mod N/4 shifted by sh = (-low) mod 4 words
+  const int sh = static_cast<int>((0u - low) & 3u);
+  const int qlow = static_cast<int>((low + 3u) >> 2);
+  uint32_t* out = reinterpret_cast<uint32_t*>(
+      dec + (static_cast<size_t>(b) * kp1 * l * nd + j * l * nd) * N);
+  for (int q = lane; q <= qmask; q += 1 << tpr_log) {
+    const uint4 own = s4[q];
+    const int a = (q - qlow) & qmask;
+    const uint4 w0 = s4[a];
+    const uint4 w1 = s4[(a + 1) & qmask];
+    const uint32_t w[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+    uint32_t v[6];
+#pragma unroll
+    for (int e = 0; e < 6; ++e) v[e] = (sh & 1) ? w[e + 1] : w[e];
+    const uint32_t mine[4] = {own.x, own.y, own.z, own.w};
+    uint32_t temp[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const uint32_t x = (sh & 2) ? v[e + 2] : v[e];
+      const bool neg = (static_cast<uint32_t>(4 * q + e) < low) != hi;
+      temp[e] = (neg ? 0u - x : x) - mine[e] + off;
+    }
+    uint32_t* o = out + q;
+#pragma unroll
+    for (int d = 0; d < l; ++d) {
+      const int shift = 32 - (d + 1) * Bgbit;
+      int dig[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dig[e] = static_cast<int>((temp[e] >> shift) & mask) - half;
+#pragma unroll
+      for (int dl = 0; dl < nd; ++dl) {
+        int part[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          part[e] = dig[e];              // the last sub-digit takes the rest
+          if (dl < nd - 1) {
+            part[e] = ((dig[e] + dhalf) & dmask) - dhalf;
+            dig[e] = (dig[e] - part[e]) >> dbits;
+          }
+        }
+        const uint32_t lo = __byte_perm(part[0], part[1], 0x0040);
+        const uint32_t up = __byte_perm(part[2], part[3], 0x0040);
+        *o = __byte_perm(lo, up, 0x5410);
+        o += N >> 2;                     // the next digit row
+      }
+    }
+  }
+}
+
+// rotdec_kernel's launch shape for rows of N = 2^nbit coefficients.
+struct RotdecPlan {
+  void (*kernel)(const uint32_t*, const int32_t*, int8_t*, int, int, int,
+                 int, int, int, int, int, uint32_t);
+  int tpr_log;                                     // log2 threads per row
+  int rows;                                        // rows per block
+  int smem;                                        // bytes per block
+};
+
+// The plan for N = 2^nbit and (l, nd), with the kernel's shared memory
+// limit raised to it (once per C call, not per step).
+cudaError_t rotdec_plan(int nbit, int l, int nd, RotdecPlan* plan) {
+  plan->kernel = l == 3 && nd == 1   ? rotdec_kernel<3, 1>
+                 : l == 2 && nd == 1 ? rotdec_kernel<2, 1>
+                 : l == 3 && nd == 2 ? rotdec_kernel<3, 2>
+                 : l == 2 && nd == 2 ? rotdec_kernel<2, 2>
+                                     : rotdec_kernel<0, 0>;
+  int tpr_log = nbit - 2;                          // one thread per quad
+  while ((1 << tpr_log) > kRotThreads ||
+         (tpr_log > 0 && (1 << (nbit - 2 - tpr_log)) < kRotQuads))
+    --tpr_log;
+  plan->tpr_log = tpr_log;
+  plan->rows = kRotThreads >> tpr_log;
+  plan->smem = plan->rows * (4 << nbit);
+  return cudaFuncSetAttribute(
+      plan->kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, plan->smem);
+}
+
+// One rotdec_kernel launch (one step) on `s`.
+cudaError_t launch_rotdec(const RotdecPlan& plan, const uint32_t* acc,
+                          const int32_t* abar_i, int8_t* dec, int B,
+                          int nbit, int kp1, int l, int Bgbit, int nd,
+                          int dbits, uint32_t off, cudaStream_t s) {
+  const int nrows = B * kp1;
+  plan.kernel<<<(nrows + plan.rows - 1) / plan.rows, kRotThreads, plan.smem,
+                s>>>(acc, abar_i, dec, nrows, nbit, plan.tpr_log, kp1, l,
+                     Bgbit, nd, dbits, off);
+  return cudaGetLastError();
+}
+
+// The arguments both entries take: N = 2^nbit with 32 <= N <= 2^kRotMaxNbit
+// (a row in shared memory), digits that rotdec_kernel's shifts can cut,
+// B within the product's grid and B * I digit rows within int, acc 16-byte
+// aligned for cp.async and dec 4-byte aligned for its stores.
+bool args_ok(const void* acc, const void* dec, int B, int N, int nbit, int k,
+             int l, int Bgbit, int nd, int dbits) {
+  return B > 0 && B <= 65535 * kBM && nbit >= 5 && nbit <= kRotMaxNbit &&
+         N == (1 << nbit) && k >= 1 && l >= 1 && Bgbit >= 1 &&
+         Bgbit <= 16 && l * Bgbit <= 32 && nd >= 1 && nd <= 2 &&
+         dbits >= 1 && dbits <= 8 &&
+         static_cast<long long>(B) * (k + 1) * l * nd <= INT_MAX &&
+         reinterpret_cast<uintptr_t>(acc) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(dec) % 4 == 0;
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
@@ -335,18 +485,15 @@ cudaError_t rotate(uint32_t* acc, const int32_t* abar, const int8_t* key,
       extprod_kernel<BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       Stage<BK>::kSmem);
   if (err != cudaSuccess) return err;
+  RotdecPlan plan;
+  err = rotdec_plan(nbit, l, nd, &plan);
+  if (err != cudaSuccess) return err;
   const int I = kp1 * l * nd;
   const size_t key_step = static_cast<size_t>(I) * kp1 * kLimbs * 2 * N;
-  const long long total = static_cast<long long>(B) * kp1 * N;
-  const long long want_blocks = (total + kRotdecThreads - 1) / kRotdecThreads;
-  const unsigned rot_blocks =
-      static_cast<unsigned>(want_blocks < (1 << 20) ? want_blocks : (1 << 20));
   const dim3 grid(kp1 * (N / kBNc), (B + kBM - 1) / kBM);
   for (int i = 0; i < n0; ++i) {
-    rotdec_kernel<<<rot_blocks, kRotdecThreads, 0, s>>>(
-        acc, abar + static_cast<size_t>(i) * B, dec, B, N, nbit, kp1, l,
-        Bgbit, nd, dbits, off);
-    err = cudaGetLastError();
+    err = launch_rotdec(plan, acc, abar + static_cast<size_t>(i) * B, dec, B,
+                        nbit, kp1, l, Bgbit, nd, dbits, off, s);
     if (err != cudaSuccess) return err;
     extprod_kernel<BK><<<grid, kThreads, Stage<BK>::kSmem, s>>>(
         acc, dec, key + i * key_step, B, N, kp1, I);
@@ -363,16 +510,15 @@ cudaError_t rotate(uint32_t* acc, const int32_t* abar, const int8_t* key,
 // [n0, I, k+1, 4, 2N] int8 with I = (k+1)*l*nd, dec is scratch of
 // B*I*N bytes. Enqueues 2*n0 kernels on `stream` and returns the first
 // launch error as a cudaError_t value (0 on success); it does not wait.
-// Sets whose limb sums could leave int32 (I*N*2^(dbits-1)*128 >= 2^31) and
-// N < 32 are refused with cudaErrorInvalidValue.
+// Sets whose limb sums could leave int32 (I*N*2^(dbits-1)*128 >= 2^31),
+// N < 32, N > 2^kRotMaxNbit and the other arguments args_ok refuses are
+// refused with cudaErrorInvalidValue.
 extern "C" int cufhe_blind_rotate(void* acc, const void* abar,
                                   const void* bk_ext, void* dec, int B,
                                   int n0, int N, int nbit, int k, int l,
                                   int Bgbit, int nd, int dbits,
                                   unsigned int off_const, void* stream) {
-  if (B <= 0 || n0 < 0 || nbit < 5 || nbit > 16 || N != (1 << nbit) ||
-      k < 1 || l < 1 || Bgbit < 1 || l * Bgbit > 32 || nd < 1 || nd > 2 ||
-      dbits < 1 || dbits > 8 || B > 65535 * kBM)
+  if (n0 < 0 || !args_ok(acc, dec, B, N, nbit, k, l, Bgbit, nd, dbits))
     return static_cast<int>(cudaErrorInvalidValue);
   const int kp1 = k + 1;
   const long long I = static_cast<long long>(kp1) * l * nd;
@@ -388,6 +534,28 @@ extern "C" int cufhe_blind_rotate(void* acc, const void* abar,
                              l, Bgbit, nd, dbits, off_const, s)
                : rotate<32>(acc_u, abar_i, key, dec_i8, B, n0, N, nbit, kp1,
                             l, Bgbit, nd, dbits, off_const, s);
+  return static_cast<int>(err);
+}
+
+// One step's rotate-and-decompose alone: dec [B, I, N] int8 from acc
+// [B, k+1, N] and abar_i [B] int32, through the kernel cufhe_blind_rotate
+// launches once per step. Enqueues one kernel on `stream`; returns the
+// launch error (0 on success), cudaErrorInvalidValue for what args_ok
+// refuses.
+extern "C" int cufhe_rotdec(const void* acc, const void* abar_i, void* dec,
+                            int B, int N, int nbit, int k, int l, int Bgbit,
+                            int nd, int dbits, unsigned int off_const,
+                            void* stream) {
+  if (!args_ok(acc, dec, B, N, nbit, k, l, Bgbit, nd, dbits))
+    return static_cast<int>(cudaErrorInvalidValue);
+  RotdecPlan plan;
+  cudaError_t err = rotdec_plan(nbit, l, nd, &plan);
+  if (err == cudaSuccess)
+    err = launch_rotdec(plan, static_cast<const uint32_t*>(acc),
+                        static_cast<const int32_t*>(abar_i),
+                        static_cast<int8_t*>(dec), B, nbit, k + 1, l, Bgbit,
+                        nd, dbits, off_const,
+                        static_cast<cudaStream_t>(stream));
   return static_cast<int>(err);
 }
 

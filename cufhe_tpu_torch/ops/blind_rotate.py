@@ -7,13 +7,17 @@ for i = 0 .. n0-1, batched over B accumulators [B, k+1, N].
 Two versions of the same function live here:
 
 * blind_rotate_ref, plain PyTorch built on ops/poly.py: rotate, decompose
-  and a materialised negacyclic Toeplitz product per step. Exact on the
-  CPU and on CUDA.
-* blind_rotate_cuda, the hand-written CUDA kernel (csrc/blind_rotate.cu),
+  (rotdec_ref) and a materialised negacyclic Toeplitz product per step.
+  Exact on the CPU and on CUDA.
+* blind_rotate_cuda, the hand-written CUDA kernels (csrc/blind_rotate.cu),
   reading the key in the layout prepare_bk_ext builds.
 
-blind_rotate takes the plain version for CPU tensors and the kernel for
-CUDA tensors; a kernel that fails to build or launch raises.
+One step's rotate-and-decompose has the same pair, rotdec_ref and
+rotdec_cuda (the kernel blind_rotate_cuda launches once per step), so the
+kernel can be held against its plain version and timed alone.
+
+blind_rotate and rotdec take the plain version for CPU tensors and the
+kernel for CUDA tensors; a kernel that fails to build or launch raises.
 """
 from __future__ import annotations
 
@@ -52,6 +56,19 @@ def prepare_bk_ext(bk: np.ndarray, params: GateParams) -> np.ndarray:
     return np.ascontiguousarray(np.moveaxis(limbs, 4, 3))
 
 
+def rotdec_ref(acc: torch.Tensor, abar_i: torch.Tensor,
+               params: GateParams) -> torch.Tensor:
+    """Plain PyTorch rotate-and-decompose of one step. acc: [B, k+1, N]
+    int32; abar_i: [B] int32 rotations in [0, 2N). Returns dec [B, I, N]
+    int8, I = (k+1)*l*nd, with sub-digit dl of digit d of component j in
+    row (j*l + d)*nd + dl: the A operand of the step's product."""
+    lp = params.lvl1
+    dec = decompose_rotate_sub(acc, abar_i, lp)             # [B, (k+1)l, N]
+    parts, _ = split_decomp_digits(dec, lp.Bgbit)
+    B, rows, N = dec.shape
+    return torch.stack(parts, dim=2).reshape(B, rows * len(parts), N)
+
+
 def blind_rotate_ref(acc: torch.Tensor, abar: torch.Tensor,
                      bk_ext: torch.Tensor, params: GateParams) -> torch.Tensor:
     """Plain PyTorch blind rotation. acc: [B, k+1, N] int32; abar: [n0, B]
@@ -60,65 +77,129 @@ def blind_rotate_ref(acc: torch.Tensor, abar: torch.Tensor,
     row r, second half). Returns a new [B, k+1, N] int32 tensor."""
     lp = params.lvl1
     N = lp.n
-    nd, _ = decomp_digit_limb_plan(lp.Bgbit)
+    nd, bits = decomp_digit_limb_plan(lp.Bgbit)
     for i in range(params.lvl0.dim):
         bk_limbs = bk_ext[i, ::nd, :, :, N:].permute(2, 0, 1, 3)
-        dec = decompose_rotate_sub(acc, abar[i], lp)
-        parts, bits = split_decomp_digits(dec, lp.Bgbit)
-        for dl, d8 in enumerate(parts):
-            upd = negacyclic_conv_toeplitz(d8, bk_limbs, lp.k)
+        dec = rotdec_ref(acc, abar[i], params)
+        for dl in range(nd):
+            upd = negacyclic_conv_toeplitz(dec[:, dl::nd], bk_limbs, lp.k)
             acc = acc + (upd << (bits * dl))
     return acc
 
 
-def blind_rotate_cuda(acc: torch.Tensor, abar: torch.Tensor,
-                      bk_ext: torch.Tensor, params: GateParams) -> torch.Tensor:
-    """One blind rotation through the CUDA kernel.
-
-    acc: [B, k+1, N] int32, abar: [n0, B] int32, bk_ext as prepare_bk_ext
-    builds it, all contiguous on one CUDA device. The kernel updates its
-    accumulator in place, so it is given a clone: `acc` is left unchanged
-    and the result is returned. Enqueued on the current stream; raises if
-    the kernel cannot be built or launched.
-    """
-    from .._build import load
-
-    lp = params.lvl1
-    n0, N, k = params.lvl0.dim, lp.n, lp.k
-    nd, dbits = decomp_digit_limb_plan(lp.Bgbit)
-    I = (k + 1) * lp.l * nd
-    B = acc.shape[0]
-    want = {"acc": (acc, torch.int32, (B, k + 1, N)),
-            "abar": (abar, torch.int32, (n0, B)),
-            "bk_ext": (bk_ext, torch.int8, (n0, I, k + 1, NLIMBS, 2 * N))}
+def _check_cuda(want: dict) -> None:
+    """Raise ValueError unless every tensor has its dtype and shape (checked
+    first, for all), lies on the first one's CUDA device and is contiguous.
+    want: name -> (tensor, dtype, shape)."""
     for name, (t, dtype, shape) in want.items():
-        if t.device.type != "cuda" or t.device != acc.device:
-            raise ValueError(f"{name} must lie on acc's CUDA device, "
-                             f"got {t.device}")
         if t.dtype != dtype or tuple(t.shape) != shape:
             raise ValueError(f"{name}: want {dtype} {shape}, "
                              f"got {t.dtype} {tuple(t.shape)}")
+    device = next(iter(want.values()))[0].device
+    for name, (t, _, _) in want.items():
+        if t.device.type != "cuda" or t.device != device:
+            raise ValueError(f"{name} must lie on one CUDA device with the "
+                             f"others, got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _decomp_args(params: GateParams) -> tuple:
+    """(N, nbit, k, l, Bgbit, nd, dbits, offset) as the C entries take
+    them."""
+    lp = params.lvl1
+    nd, dbits = decomp_digit_limb_plan(lp.Bgbit)
+    off = (lp.decomp_offset + lp.decomp_roundoffset) % (1 << 32)
+    return lp.n, lp.nbit, lp.k, lp.l, lp.Bgbit, nd, dbits, off
+
+
+def _raise_on(lib, rc: int, entry: str) -> None:
+    if rc != 0:
+        msg = lib.cufhe_error_string(rc).decode()
+        raise RuntimeError(f"{entry} failed: {msg} ({rc})")
+
+
+def blind_rotate_cuda(acc: torch.Tensor, abar: torch.Tensor,
+                      bk_ext: torch.Tensor, params: GateParams) -> torch.Tensor:
+    """One blind rotation through the CUDA kernels.
+
+    acc: [B, k+1, N] int32, abar: [n0, B] int32, bk_ext as prepare_bk_ext
+    builds it, all contiguous on one CUDA device. The kernels update their
+    accumulator in place, so they are given a clone: `acc` is left
+    unchanged and the result is returned. Enqueued on the current stream;
+    raises if the kernels cannot be built or launched.
+    """
+    from .._build import load
+
+    n0 = params.lvl0.dim
+    N, nbit, k, l, Bgbit, nd, dbits, off = _decomp_args(params)
+    I = (k + 1) * l * nd
+    B = acc.shape[0]
+    _check_cuda({"acc": (acc, torch.int32, (B, k + 1, N)),
+                 "abar": (abar, torch.int32, (n0, B)),
+                 "bk_ext": (bk_ext, torch.int8,
+                            (n0, I, k + 1, NLIMBS, 2 * N))})
     lib = load()
     out = acc.clone()
     dec = torch.empty((B, I, N), dtype=torch.int8, device=acc.device)
-    off = (lp.decomp_offset + lp.decomp_roundoffset) % (1 << 32)
     with torch.cuda.device(acc.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.cufhe_blind_rotate(
             out.data_ptr(), abar.data_ptr(), bk_ext.data_ptr(),
-            dec.data_ptr(), B, n0, N, lp.nbit, k, lp.l, lp.Bgbit, nd, dbits,
-            off, stream)
-    if rc != 0:
-        msg = lib.cufhe_error_string(rc).decode()
-        raise RuntimeError(f"cufhe_blind_rotate failed: {msg} ({rc})")
+            dec.data_ptr(), B, n0, N, nbit, k, l, Bgbit, nd, dbits, off,
+            stream)
+    _raise_on(lib, rc, "cufhe_blind_rotate")
     blind_rotate_cuda.launches += 1
+    rotdec_cuda.launches += n0
     return out
 
 
-#: blind rotations launched through the kernel (one per successful call)
+#: blind rotations launched through the kernels (one per successful call)
 blind_rotate_cuda.launches = 0
+
+
+def rotdec_cuda(acc: torch.Tensor, abar_i: torch.Tensor,
+                params: GateParams) -> torch.Tensor:
+    """One step's rotate-and-decompose through the CUDA kernel: dec
+    [B, I, N] int8 as rotdec_ref returns it. acc: [B, k+1, N] int32,
+    abar_i: [B] int32, contiguous on one CUDA device (checked before
+    anything is built). Enqueued on the current stream; raises if the
+    kernel cannot be built or launched."""
+    from .._build import load
+
+    N, nbit, k, l, Bgbit, nd, dbits, off = _decomp_args(params)
+    B = acc.shape[0]
+    _check_cuda({"acc": (acc, torch.int32, (B, k + 1, N)),
+                 "abar_i": (abar_i, torch.int32, (B,))})
+    lib = load()
+    dec = torch.empty((B, (k + 1) * l * nd, N), dtype=torch.int8,
+                      device=acc.device)
+    with torch.cuda.device(acc.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.cufhe_rotdec(acc.data_ptr(), abar_i.data_ptr(),
+                              dec.data_ptr(), B, N, nbit, k, l, Bgbit, nd,
+                              dbits, off, stream)
+    _raise_on(lib, rc, "cufhe_rotdec")
+    rotdec_cuda.launches += 1
+    return dec
+
+
+#: launches of the rotate-and-decompose kernel: one per rotdec_cuda call,
+#: n0 per blind_rotate_cuda call (cufhe_blind_rotate launches it each step)
+rotdec_cuda.launches = 0
+
+
+def rotdec(acc: torch.Tensor, abar_i: torch.Tensor,
+           params: GateParams) -> torch.Tensor:
+    """One step's rotate-and-decompose on acc's device: the CUDA kernel
+    for CUDA tensors, the plain version for CPU tensors, no fallback
+    between them."""
+    if acc.device.type == "cuda":
+        return rotdec_cuda(acc, abar_i, params)
+    if acc.device.type == "cpu":
+        return rotdec_ref(acc, abar_i, params)
+    raise NotImplementedError(f"no rotate-and-decompose for device "
+                              f"{acc.device}")
 
 
 def blind_rotate(acc: torch.Tensor, abar: torch.Tensor, bk_ext: torch.Tensor,

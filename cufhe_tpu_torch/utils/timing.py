@@ -9,25 +9,42 @@ from contextlib import contextmanager
 import torch
 
 
-def time_fn(fn, *args, iters: int = 5, warmup: int = 1,
-            device="cuda") -> float:
+def time_fn(fn, *args, iters: int = 5, warmup: int = 1, device="cuda",
+            between=None, sleep_cycles: int = 0) -> float:
     """Median seconds per call of fn(*args). On a CUDA device each call is
     timed between two events on the current stream; device="cpu" times
-    on the host clock."""
+    on the host clock. between(), if given, runs before each call, the
+    warm-up's too, outside the timed span (to evict the L2, say).
+    sleep_cycles > 0 enqueues a sleep kernel of that many cycles ahead of
+    the timed calls and waits only after the last, so the queue stays
+    full and no host time falls inside a pair of events; the warm-up has
+    by then loaded every kernel the calls launch, whose first launch can
+    take the host longer than the sleep."""
     for _ in range(warmup):
+        if between is not None:
+            between()
         fn(*args)
     times = []
     if torch.device(device).type == "cuda":
-        for _ in range(iters):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
+        pairs = [(torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+        if sleep_cycles:
+            torch.cuda.synchronize()
+            torch.cuda._sleep(sleep_cycles)
+        for start, end in pairs:
+            if between is not None:
+                between()
             start.record()
             fn(*args)
             end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end) / 1e3)
+            if not sleep_cycles:
+                end.synchronize()
+        torch.cuda.synchronize()
+        times = [start.elapsed_time(end) / 1e3 for start, end in pairs]
     else:
         for _ in range(iters):
+            if between is not None:
+                between()
             t0 = time.perf_counter()
             fn(*args)
             times.append(time.perf_counter() - t0)

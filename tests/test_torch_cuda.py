@@ -1,10 +1,11 @@
-"""cufhe_tpu_torch on a CUDA device: the blind-rotation kernel (at the tiny
-presets and at every full preset) and both tensor-core probe kernels (wgmma
-and mma.sync) against their plain PyTorch versions; the gates and mux at
-both levels against the port's golden model; the executor against its CPU
-run; gates chained across CUDA streams against the default stream; and the
-key lifecycle's device memory. Results compare as uint32. Every test skips
-without a CUDA device.
+"""cufhe_tpu_torch on a CUDA device: the blind-rotation kernels (at the tiny
+presets and at every full preset; the rotate-and-decompose kernel also
+alone, and its refusal of rows wider than shared memory holds) and both
+tensor-core probe kernels (wgmma and mma.sync) against their plain
+PyTorch versions; the gates and mux at both levels against the port's
+golden model; the executor against its CPU run; gates chained across CUDA
+streams against the default stream; and the key lifecycle's device
+memory. Results compare as uint32. Every test skips without a CUDA device.
 
 This file imports neither JAX nor the JAX package (the oracle is the
 port's own golden.py and params.py), so it runs where only the port's
@@ -22,6 +23,7 @@ from cufhe_tpu_torch import Context, Ctxt, decrypt_bits, encrypt_bits
 from cufhe_tpu_torch import golden as G
 from cufhe_tpu_torch import params as P
 from cufhe_tpu_torch.benchmarks import mxu_peak as MP
+from cufhe_tpu_torch.benchmarks import rotdec as RD
 from cufhe_tpu_torch.models.gates import TWO_INPUT
 from cufhe_tpu_torch.ops import blind_rotate as BR
 from cufhe_tpu_torch.ops import keys as TK
@@ -107,6 +109,85 @@ def test_cuda_kernel_rejects_bad_inputs(cuda):
             torch.zeros((1, 6, 2, 4, 2 * N), dtype=torch.int8, device=cuda),
             wide)
     assert BR.blind_rotate_cuda.launches == before
+
+
+@pytest.mark.parametrize("rows", [1, 8, 129])
+@pytest.mark.parametrize("params", [P.PALLAS_TINY, P.PALLAS_TINY_K2,
+                                    P.PALLAS_BG10, P.TINY, P.TINY_K2,
+                                    P.TFHEPP_128],
+                         ids=lambda p: p.name)
+def test_cuda_rotdec_matches_ref(params, rows, cuda):
+    acc, abar = RD.random_inputs(params, rows, 90, cuda)
+    before = BR.rotdec_cuda.launches
+    got = BR.rotdec(acc, abar, params)
+    want = BR.rotdec_ref(acc, abar, params)
+    torch.cuda.synchronize()
+    assert BR.rotdec_cuda.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("params", FULL_PRESETS, ids=lambda p: p.name)
+def test_cuda_rotdec_matches_ref_full_presets(params, cuda):
+    acc, abar = RD.random_inputs(params, 257, 91, cuda)
+    assert torch.equal(BR.rotdec_cuda(acc, abar, params),
+                       BR.rotdec_ref(acc, abar, params))
+
+
+def test_cuda_blind_rotate_counts_rotdec_launches(cuda):
+    """cufhe_blind_rotate launches the rotate-and-decompose kernel once per
+    step: n0 on rotdec_cuda's count per rotation."""
+    params = P.TINY
+    keys = _device_keys(params, 92)
+    acc, abar = _random_inputs(params, 3, 93, cuda)
+    before = BR.rotdec_cuda.launches
+    BR.blind_rotate_cuda(acc, abar, keys.bk_ext, params)
+    assert BR.rotdec_cuda.launches == before + params.n0
+
+
+def _wide(nbit, l=1, Bgbit=2):
+    return P.GateParams(name=f"wide-{nbit}", lvl0=P.LweParams(n=1),
+                        lvl1=P.TrlweParams(nbit=nbit, k=1, l=l, Bgbit=Bgbit),
+                        ks=P.KeySwitchParams())
+
+
+def test_cuda_rotdec_holds_rows_to_32768_and_refuses_wider(cuda):
+    """A row lives in shared memory: N = 2^15 (128 KB) runs, N = 2^16 is
+    refused with cudaErrorInvalidValue by both entries, though its limb
+    sums would fit the product's int32 bound."""
+    held = _wide(15)
+    acc, abar = RD.random_inputs(held, 3, 94, cuda)
+    assert torch.equal(BR.rotdec_cuda(acc, abar, held),
+                       BR.rotdec_ref(acc, abar, held))
+    wide = _wide(16)
+    N = wide.lvl1.n
+    acc = torch.zeros((1, 2, N), dtype=torch.int32, device=cuda)
+    abar = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
+    before = (BR.rotdec_cuda.launches, BR.blind_rotate_cuda.launches)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        BR.rotdec_cuda(acc, abar[0], wide)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        BR.blind_rotate_cuda(
+            acc, abar, torch.zeros((1, 2, 2, 4, 2 * N), dtype=torch.int8,
+                                   device=cuda), wide)
+    assert (BR.rotdec_cuda.launches, BR.blind_rotate_cuda.launches) == before
+
+
+def test_cuda_rotdec_rejects_bad_inputs(cuda):
+    params = P.TINY
+    acc, abar = RD.random_inputs(params, 4, 95, cuda)
+    with pytest.raises(ValueError, match="want"):
+        BR.rotdec_cuda(acc.to(torch.int64), abar, params)
+    with pytest.raises(ValueError, match="contiguous"):
+        BR.rotdec_cuda(acc.transpose(0, 1).contiguous().transpose(0, 1),
+                       abar, params)
+    with pytest.raises(ValueError, match="CUDA device"):
+        BR.rotdec_cuda(acc, abar.cpu(), params)
+    # cp.async reads acc in 16-byte pieces: a view 4 bytes off is refused
+    flat = torch.zeros(acc.numel() + 1, dtype=torch.int32, device=cuda)
+    before = BR.rotdec_cuda.launches
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        BR.rotdec_cuda(flat[1:].view(acc.shape), abar, params)
+    assert BR.rotdec_cuda.launches == before
 
 
 def test_int_mm_cuda_shape_limits(cuda):

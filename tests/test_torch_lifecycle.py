@@ -3,6 +3,8 @@ prepare_backend, reinitialize; the counterpart of tests/test_lifecycle.py),
 key and ciphertext files (utils.serialization, a copy of the JAX
 package's, interchangeable with it) and the timing helpers, on the CPU at
 the tiny presets."""
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -206,3 +208,17 @@ def test_time_fn_and_trace_on_the_cpu(tmp_path):
     with timing.trace(str(path), cuda=False):
         (x * 3).sum()
     assert path.stat().st_size > 0
+
+
+def test_time_fn_runs_between_outside_each_timed_call():
+    """between() runs once before each call, the warm-up's too, and its
+    time is not counted."""
+    calls = []
+
+    def between():
+        calls.append("between")
+        time.sleep(0.05)
+    t = timing.time_fn(lambda: calls.append("fn"), iters=3, warmup=1,
+                       device="cpu", between=between)
+    assert calls == ["between", "fn"] * 4
+    assert t < 0.05

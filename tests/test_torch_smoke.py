@@ -87,3 +87,30 @@ def test_ptxas_warnings_finds_ignored_setmaxnreg():
         "ptxas warning : (C7508) setmaxnreg ignored; unable to determine "
         "register count at entry"]
     assert smoke.ptxas_warnings(_LOG) == []
+
+
+def test_ptxas_report_names_template_instances():
+    """rotdec_kernel<L, ND> instances report under their template
+    arguments, and phase 2 finds them by the name before the '<'."""
+    log = """\
+ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__eb88de2c_15_blind_rotate_cu_1b2cd1d313rotdec_kernelILi3ELi1EEEvPKjPKiPaiiiiiiiij' for 'sm_90a'
+ptxas info    : Function properties for _ZN48_GLOBAL__N__eb88de2c_15_blind_rotate_cu_1b2cd1d313rotdec_kernelILi3ELi1EEEvPKjPKiPaiiiiiiiij
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 28 registers, used 1 barriers
+"""
+    report = smoke.ptxas_report(log)
+    assert report == [("rotdec_kernel<3, 1>", 28,
+                       "0 bytes spill stores, 0 bytes spill loads")]
+    assert report[0][0].split("<")[0] == "rotdec_kernel"
+
+
+def test_rotdec_bound_is_the_benchs_bound():
+    """Phase 6 (the bench's measure) and phase 10 (bound) hold
+    rotdec_kernel against the same device-memory rate, the port's own."""
+    from cufhe_tpu_torch.benchmarks import _common
+    from cufhe_tpu_torch.benchmarks import rotdec as RD
+    assert not hasattr(smoke, "HBM_BYTES_PER_S")
+    assert RD.HBM_BYTES_PER_S is _common.HBM_BYTES_PER_S
+    nbytes = RD.rotdec_bytes(P.TFHEPP_128, 4096)
+    ms, by = smoke.bound(0, nbytes)
+    assert by == "bytes" and ms == nbytes / RD.HBM_BYTES_PER_S * 1e3
