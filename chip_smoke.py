@@ -94,10 +94,23 @@ Phases, each raising on failure:
      at batch 256 with 0 errors and every margin above its floor, the
      phase breakdown at batch 4096, and each of the six examples at TINY
      plus 01_gates.py --full run in this process, each printing its
-     success line; the kernel's launches of the phase are counted.
+     success line; the kernel's launches of the phase are counted;
+ 20. the reduced-precision pallas3 path (run after 18): the three-limb
+     instances of the product kernel against the plain version bit for
+     bit at PALLAS_TINY, PALLAS_TINY_K2, PALLAS_BG10 (N = 128: 32 outputs
+     a block) and PALLAS_KAR, PALLAS_BG10_KAR (N = 512: 64 outputs a
+     block), 8 and 129 rows, and at tfhepp_128bit and tfhepp_80bit (129
+     and 4096 rows); each instance's IMMA count in the SASS (cuobjdump,
+     which must run: three limbs must be 3/4 of four); both key
+     precisions timed in turns at the main path's shape
+     (benchmarks/rotation.py); phase 5's chain on Context(ek, "pallas3") with 0 decrypt errors, the
+     three-limb instance launched once a gate and the exact one never;
+     one pallas3 NAND under torch.profiler; the noise std and margins at
+     batch 2048 (benchmarks/noise.py) beside the JAX record.
 
-Prints the card line, a {"kernels": [...]} line, and as the last line
-{"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
+Prints the card line, a {"kernels": [...]} line (blind_rotate,
+blind_rotate_pallas3, rotdec, mxu_peak, mxu_peak_wgmma), and as the last
+line {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
 The client side (keygen, encrypt, decrypt) and the oracle are the port's
 NumPy module cufhe_tpu_torch.golden; neither JAX nor the JAX package is
 imported.
@@ -126,8 +139,16 @@ PROBE_REPLACES = "benchmarks/mxu_peak.py:116"
 #: rows of each full-width result held against golden (seconds each)
 GOLDEN_ROWS = (0, BATCH - 1)
 WORKERS = 6
-#: the device of phases 8, 9, 15 and 16
+#: the device of phases 8, 9, 15, 16 and 20
 DEV = "cuda"
+#: phase 20's sets and rows held to the plain version at three limbs
+PALLAS3_SETS = (("pallas-tiny-insecure-test", (8, 129)),
+                ("pallas-tiny-k2-insecure-test", (8, 129)),
+                ("pallas-bg10-insecure-test", (8, 129)),
+                ("pallas-kar-insecure-test", (8, 129)),
+                ("pallas-bg10-kar-insecure-test", (8, 129)),
+                ("tfhepp_128bit", (129, BATCH)),
+                ("tfhepp_80bit", (129, BATCH)))
 MIXED = ("nand", "xor", "andyn", "orny")
 #: phase 11's presets (phase 3 also holds the kernel to its plain version
 #: at each)
@@ -211,42 +232,6 @@ def ptxas_warnings(log_text: str) -> list:
     """ptxas's warning lines in nvcc's build log."""
     return [line.strip() for line in log_text.splitlines()
             if line.lstrip().startswith("ptxas") and "warning" in line]
-
-
-def bound(ops: float, nbytes: float):
-    """(ms, "operations" or "bytes"): the least time the card could take
-    for `ops` int8 operations moving `nbytes` bytes of device memory, at
-    the H100's data-sheet rates (benchmarks/_common.py)."""
-    from cufhe_tpu_torch.benchmarks._common import (HBM_BYTES_PER_S,
-                                                   INT8_OPS_PER_S)
-    ops_ms = ops / INT8_OPS_PER_S * 1e3
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
-
-
-def rotation_work(params, rows: int):
-    """(int8 MACs, bytes each read or written once) of one blind rotation
-    of `rows` accumulators: acc in and out, abar, the key."""
-    from cufhe_tpu_torch.ops.limbs import NLIMBS, decomp_digit_limb_plan
-    lp = params.lvl1
-    n0, N, kp1 = params.lvl0.dim, lp.n, lp.k + 1
-    I = kp1 * lp.l * decomp_digit_limb_plan(lp.Bgbit)[0]
-    macs = float(rows) * (I * N) * (kp1 * NLIMBS * N) * n0
-    nbytes = (2 * rows * kp1 * N * 4 + n0 * rows * 4
-              + n0 * I * kp1 * NLIMBS * 2 * N)
-    return macs, nbytes
-
-
-def random_rotation_inputs(params, rows: int, seed: int, device):
-    """Random accumulators [rows, k+1, N] and rotations abar [n0, rows]."""
-    import numpy as np
-    from cufhe_tpu_torch.torus import from_u32
-    rng = np.random.default_rng(seed)
-    lp = params.lvl1
-    acc = rng.integers(0, 1 << 32, (rows, lp.k + 1, lp.n), dtype=np.uint64)
-    abar = rng.integers(0, 2 * lp.n, (params.lvl0.dim, rows))
-    return (from_u32(acc.astype(np.uint32), device),
-            from_u32(abar.astype(np.uint32), device))
 
 
 # -- golden jobs for worker processes (phase 9) ------------------------------
@@ -341,6 +326,7 @@ def phase_presets(eks: dict, tag: str) -> dict:
     import cufhe_tpu_torch as T
     from cufhe_tpu_torch import golden as G
     from cufhe_tpu_torch.torus import from_u32, to_u32
+    from cufhe_tpu_torch.benchmarks.rotation import bound, rotation_work
 
     rng = np.random.default_rng(14)
     inputs, gold, row0, rates = {}, {}, {}, {}
@@ -1022,6 +1008,7 @@ def phase_probe(info: dict, tag: str) -> dict:
     import numpy as np
     import torch
     from cufhe_tpu_torch.benchmarks import mxu_peak as MP
+    from cufhe_tpu_torch.benchmarks.rotation import bound
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(9)
@@ -1344,6 +1331,8 @@ def phase_profile(ctx, sk, tag: str) -> None:
     import numpy as np
     import cufhe_tpu_torch as T
     from cufhe_tpu_torch.benchmarks import rotdec as RD
+    from cufhe_tpu_torch.benchmarks.rotation import (
+        bound, random_rotation_inputs)
     from cufhe_tpu_torch.ops.keyswitch import key_switch
     from cufhe_tpu_torch.ops.poly import sample_extract_for_ks
 
@@ -1392,6 +1381,186 @@ def phase_profile(ctx, sk, tag: str) -> None:
                                  f"{key}, want {n0}")
 
 
+def sass_mma_counts(sass: str) -> dict:
+    """{kernel instance: IMMA instructions} in cuobjdump -sass output.
+    Loops count once: these are the unrolled bodies."""
+    import re
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            k = re.search(r"([a-z_]+_kernel)I((?:Li\d+E)+)E", m.group(1))
+            name = (f"{k.group(1)}<"
+                    f"{', '.join(re.findall(r'Li(\d+)E', k.group(2)))}>"
+                    if k else None)
+            if name:
+                counts[name] = 0
+        elif name and "IMMA" in line:
+            counts[name] += 1
+    return counts
+
+
+def library_sass(lib_path) -> str:
+    """cuobjdump -sass of the built library. cuobjdump ships beside nvcc,
+    which has just built the library, so its absence or failure raises,
+    as does output without an extprod_kernel instance."""
+    import shutil
+    import subprocess
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        raise FileNotFoundError(f"no cuobjdump beside nvcc ({tool})")
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    if "extprod_kernel" not in sass:
+        raise AssertionError(f"cuobjdump -sass {lib_path} shows no "
+                             f"extprod_kernel instance")
+    return sass
+
+
+def phase_pallas3(ek, sk, p5, tag: str) -> dict:
+    """20. The reduced-precision pallas3 path: the three-limb instances of
+    extprod_kernel against the plain version bit for bit (PALLAS3_SETS);
+    their IMMA counts; both key precisions timed in turns
+    (benchmarks/rotation.py); a batch-4096 NAND chain on a pallas3
+    Context on phase 5's inputs with its decrypt errors and launches (the
+    three-limb instance once a gate, the exact one never); one profiled
+    pallas3 NAND; the margins at batch 2048 (benchmarks/noise.py) beside
+    the JAX record. Returns the kernels line's blind_rotate_pallas3
+    entry."""
+    import warnings
+    import numpy as np
+    import torch
+    import cufhe_tpu_torch as T
+    from cufhe_tpu_torch import _build
+    from cufhe_tpu_torch.bench import expected_nand_chain, time_nand_chain
+    from cufhe_tpu_torch.benchmarks import rotation as RT
+    from cufhe_tpu_torch.benchmarks.noise import centered_phases, measure_noise
+    from cufhe_tpu_torch.ops import blind_rotate as BR
+    from cufhe_tpu_torch.ops.keyswitch import key_switch
+    from cufhe_tpu_torch.ops.poly import sample_extract_for_ks
+
+    max_err, plain_ms = 0, None
+    for name, rows_list in PALLAS3_SETS:
+        params = T.PRESETS[name]
+        key3 = RT.random_keys(params, 800, DEV, limbs=(3,))[3]
+        for rows in rows_list:
+            acc, abar = RT.random_rotation_inputs(params, rows, 700 + rows,
+                                                  DEV)
+            want, ms = cuda_ms(lambda: BR.blind_rotate_ref(acc, abar, key3,
+                                                           params))
+            if name == T.TFHEPP_128.name and rows == BATCH:
+                plain_ms = ms
+            got = BR.blind_rotate_cuda(acc, abar, key3, params)
+            torch.cuda.synchronize()
+            err = u32_max_abs_err(got, want)
+            log(f"pallas3 kernel (3 limbs) vs plain {name}, {rows} rows: "
+                f"max_abs_err {err}")
+            if err:
+                raise AssertionError(f"the three-limb kernel disagrees at "
+                                     f"{name}, {rows} rows")
+            max_err = max(max_err, err)
+            del acc, abar, want, got
+        del key3
+
+    mma = {k: v for k, v in sass_mma_counts(library_sass(
+        _build.build_dir() / _build.LIB_NAME)).items()
+        if k.startswith("extprod")}
+    log(f"SASS IMMA instructions per unrolled stage (cuobjdump): "
+        f"{json.dumps(mma)}")
+    # per stage: <128, 3, 1> covers the contraction and outputs of
+    # <128, 4, 1>; <256, 3, 2> twice the contraction and twice the outputs
+    if not mma or (4 * mma["extprod_kernel<128, 3, 1>"]
+                   != 3 * mma["extprod_kernel<128, 4, 1>"]
+                   or mma["extprod_kernel<256, 3, 2>"]
+                   != 4 * mma["extprod_kernel<128, 3, 1>"]):
+        raise AssertionError("a three-limb instance does not issue 3/4 of "
+                             "the four-limb instance's MMAs")
+
+    recs = {r["nlimbs"]: r for r in RT.measure(T.TFHEPP_128, BATCH)}
+    for nl, r in recs.items():
+        log(f"rotation at B={BATCH}, {T.TFHEPP_128.name}, {nl} limbs: "
+            f"{r['ms']:.1f} ms (reps "
+            f"{[round(t, 1) for t in r['ms_reps']]}), "
+            f"{r['tmacs_per_sec']:.2f} int8 TMAC/s, bound "
+            f"{r['bound_ms']:.1f} ms ({r['bound_by']}), "
+            f"{100 * r['share_of_bound']:.1f} % of it; library "
+            f"torch._int_mm x n0 {r['library_ms']:.1f} ms {tag}")
+    mine = recs[3]
+
+    bits0, bits1, a, b, exact, _, gate_rate = p5
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        ctx3 = T.Context(ek, "pallas3")
+    log(f"Context(ek, 'pallas3') warned: {str(caught[0].message)!r}")
+    if ctx3.keys.bk_ext.shape[3] != 3:
+        raise AssertionError("a pallas3 context holds a four-limb key")
+    key_mb = ctx3.keys.bk_ext.numel() / 1e6
+    torch.cuda.synchronize()
+    BR.blind_rotate_cuda.launches = 0
+    BR.blind_rotate_cuda.by_nlimbs.update(dict.fromkeys(BR.KEY_LIMBS, 0))
+    first = ctx3.nand(a, b)
+    out, times = time_nand_chain(ctx3, first, b, ITERS, REPS)
+    gates = 1 + ITERS * REPS
+    launches = dict(BR.blind_rotate_cuda.by_nlimbs)
+    errors = int(np.sum(T.decrypt_bits(out, sk)
+                        != expected_nand_chain(bits0, bits1, gates)))
+    rate = BATCH / statistics.median(times)
+    diff = centered_phases(first, sk) - centered_phases(exact, sk)
+    diff = (diff + (1 << 31)) % (1 << 32) - (1 << 31)
+    log(f"pallas3 main path: {gates} chained NANDs at batch {BATCH}, "
+        f"{ek.params.name}, phase 5's inputs: decrypt errors {errors}, "
+        f"launches {launches[3]} of the three-limb instance, {launches[4]} "
+        f"of the four-limb one; {rate:.2f} gates/s "
+        f"({100 * rate / gate_rate:.2f} % of phase 5; reps "
+        f"{[round(t * 1e3, 1) for t in times]} ms); key {key_mb:.1f} MB; "
+        f"phase distance of the first NAND to the exact one: std "
+        f"2^{np.log2(max(diff.std(), 1)):.2f}, max "
+        f"2^{np.log2(max(np.abs(diff).max(), 1)):.2f} {tag}")
+    if errors or launches != {3: gates, 4: 0}:
+        raise AssertionError("the pallas3 main path failed its checks")
+
+    acc, _ = RT.random_rotation_inputs(T.TFHEPP_128, BATCH, 13, DEV)
+    tlwe1 = sample_extract_for_ks(acc, T.TFHEPP_128.lvl1)
+    ks, _, _ = profile_kernels(
+        lambda: key_switch(tlwe1, ctx3.keys.ksk_limbs_sei, ek.params))
+    per, busy, wall = profile_kernels(lambda: ctx3.nand(a, b))
+    groups = {"extprod_kernel (3 limbs)": [0.0, 0], "rotdec_kernel": [0.0, 0],
+              "key switch": [0.0, 0], "everything else": [0.0, 0]}
+    for name, (ms, n) in per.items():
+        key = ("extprod_kernel (3 limbs)" if "extprod_kernel" in name
+               else "rotdec_kernel" if "rotdec_kernel" in name
+               else "key switch" if name in ks else "everything else")
+        groups[key][0] += ms
+        groups[key][1] += n
+    log(f"profile, one pallas3 NAND at batch {BATCH}: host {wall:.1f} ms, "
+        f"device busy {busy:.1f} ms (idle {100 * (1 - busy / wall):.2f} %) "
+        f"{tag}")
+    for key, (ms, n) in groups.items():
+        log(f"  {key}: {ms:.2f} ms in {n} launches ({100 * ms / busy:.2f} % "
+            f"of busy)")
+    if groups["extprod_kernel (3 limbs)"][1] != ek.params.n0:
+        raise AssertionError("profile: the pallas3 NAND did not launch the "
+                             "product once a step")
+    del ctx3, first, out, acc, tlwe1
+
+    noise = measure_noise(T.TFHEPP_128, "pallas3", batch=2048, ek=ek, sk=sk)
+    log(f"pallas3 noise at batch 2048: std 2^{noise['noise_std_log2']}, "
+        f"decrypt margin {noise['decrypt_margin_sigmas']} sigma, worst-gate "
+        f"(XOR) margin {noise['worst_gate_margin_sigmas']} sigma, decrypt "
+        f"errors {noise['decrypt_errors']}, wrong XORs of bootstrapped "
+        f"outputs {noise['xor_of_bootstrapped_errors']} of 2048; the JAX "
+        f"record (benchmarks/BENCHMARKS.md:67): 2^26.13, 7.3, 2.6 sigma "
+        f"{tag}")
+    if noise["decrypt_errors"]:
+        raise AssertionError("pallas3 NANDs decrypt wrong")
+    return {"name": "blind_rotate_pallas3", "route": "cuda",
+            "source": SOURCE, "replaces": REPLACES, "launches": launches[3],
+            "max_abs_err": max_err, "ms": mine["ms"], "plain_ms": plain_ms,
+            "bound_ms": mine["bound_ms"], "bound_by": mine["bound_by"],
+            "library_ms": mine["library_ms"], "ms_four_limbs": recs[4]["ms"],
+            "gates_per_sec": rate, "noise": noise}
+
+
 def main() -> int:
     started = time.perf_counter()
     import torch
@@ -1407,6 +1576,8 @@ def main() -> int:
     from cufhe_tpu_torch.bench import (card, expected_nand_chain,
                                        time_nand_chain)
     from cufhe_tpu_torch.benchmarks import rotdec as RD
+    from cufhe_tpu_torch.benchmarks.rotation import (
+        bound, random_rotation_inputs, rotation_work)
     from cufhe_tpu_torch.models.integers import IntContext, encrypt_uint
     from cufhe_tpu_torch.ops import blind_rotate as BR
     from cufhe_tpu_torch.ops.keys import prepare_keys
@@ -1431,6 +1602,10 @@ def main() -> int:
     for want in ("extprod_kernel", "rotdec_kernel", "mxu_peak_kernel",
                  "mxu_peak_wgmma_kernel"):
         if not any(name.split("<")[0] == want for name, _, _ in report):
+            raise AssertionError(f"no ptxas report for {want}")
+    for want in ("extprod_kernel<128, 4, 1>", "extprod_kernel<128, 3, 1>",
+                 "extprod_kernel<256, 3, 2>"):
+        if not any(name == want for name, _, _ in report):
             raise AssertionError(f"no ptxas report for {want}")
     for line in ptxas_warnings(build_log):
         log(f"  {line}")
@@ -1610,6 +1785,8 @@ def main() -> int:
     # 17. and 18. the ntt backend and the mesh, on phase 5's inputs
     ntt_launches_run = phase("17", phase_ntt, ctx, sk, ek, p5, tag)
     mesh_launches_run = phase("18", phase_mesh, ctx, sk, ek, p5, adder, tag)
+    # 20. the reduced-precision pallas3 path, on phase 5's inputs
+    pallas3 = phase("20", phase_pallas3, ek, sk, p5, tag)
     # 14. the key lifecycle, last: it swaps the context's preset
     phase("14", phase_lifecycle, ctx, sk, ek, eks["concrete"], tag)
     log("host seconds per phase: " + ", ".join(
@@ -1639,7 +1816,8 @@ def main() -> int:
         {"name": "mxu_peak", "route": "cuda", "source": PROBE_SOURCE,
          "replaces": PROBE_REPLACES, **probe["mma_sync"]},
         {"name": "mxu_peak_wgmma", "route": "cuda", "source": WGMMA_SOURCE,
-         "replaces": PROBE_REPLACES, **probe["wgmma"]}]}))
+         "replaces": PROBE_REPLACES, **probe["wgmma"]},
+        {key: v for key, v in pallas3.items() if key != "noise"}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,9 +6,11 @@ decomposition alone, each at the same batch as a median of CUDA-event
 times (utils.timing.time_fn). null_ms times a call that returns its input:
 the resolution floor.
 
-    python -m cufhe_tpu_torch.benchmarks.phase_breakdown [batch]   # 4096
+    python -m cufhe_tpu_torch.benchmarks.phase_breakdown [batch] [backend]
+                                                  # 4096, auto
 
-Keys come from the bench key cache. Prints one JSON line with the card's
+Keys come from the bench key cache; the backend's key form is prepared
+(pallas3: the three-limb key). Prints one JSON line with the card's
 name and power limit; exits 2 without a CUDA device. The phase functions
 compose to ops.bootstrap.gate_lvl0 (the tests hold them to it on the CPU).
 """
@@ -34,16 +36,16 @@ def null(a, b, keys, params):
     return a
 
 
-def full_nand(a, b, keys, params):
-    return gate_lvl0(GATE_CONSTANTS["nand"], a, b, keys, params)
+def full_nand(a, b, keys, params, backend="auto"):
+    return gate_lvl0(GATE_CONSTANTS["nand"], a, b, keys, params, backend)
 
 
-def blind_rotate_only(a, b, keys, params):
+def blind_rotate_only(a, b, keys, params, backend="auto"):
     """Pre-add, mod switch and test vector, blind rotation: the TRLWE
     accumulator [B, k+1, N]."""
     ca, cb, off = _gate_coeffs(GATE_CONSTANTS["nand"], params.lvl0.mu)
     aa, bb = _pre_add(a, b, ca, cb, off, params.lvl0.dim)
-    return blind_rotate(aa, bb, params.lvl1.mu, keys, params)
+    return blind_rotate(aa, bb, params.lvl1.mu, keys, params, backend)
 
 
 def extract_ks_only(acc, keys, params):
@@ -67,11 +69,13 @@ def random_inputs(params, batch: int, device, seed: int = 3):
                           device) for _ in range(2))
 
 
-def breakdown(keys, params, batch: int, device="cuda") -> dict:
-    """The phase times in ms at `batch` rows, keys on `device`."""
+def breakdown(keys, params, batch: int, device="cuda",
+              backend: str = "auto") -> dict:
+    """The phase times in ms at `batch` rows, keys on `device` in the
+    backend's form."""
     from ..utils.timing import time_fn
     a, b = random_inputs(params, batch, device)
-    acc = blind_rotate_only(a, b, keys, params)
+    acc = blind_rotate_only(a, b, keys, params, backend)
     tlwe1 = sample_extract_for_ks(acc, params.lvl1)
 
     def ms(fn, *args):
@@ -80,24 +84,27 @@ def breakdown(keys, params, batch: int, device="cuda") -> dict:
     return {
         "batch": batch,
         "null_ms": ms(null, a, b, keys, params),
-        "full_nand_ms": ms(full_nand, a, b, keys, params),
-        "blind_rotate_ms": ms(blind_rotate_only, a, b, keys, params),
+        "full_nand_ms": ms(full_nand, a, b, keys, params, backend),
+        "blind_rotate_ms": ms(blind_rotate_only, a, b, keys, params,
+                              backend),
         "extract_ks_ms": ms(extract_ks_only, acc, keys, params),
         "ks_decompose_ms": ms(ks_decompose_only, tlwe1, params),
     }
 
 
 def main() -> int:
+    from ..ops.bootstrap import resolve_backend
     from ..ops.keys import prepare_keys
     from ..params import TFHEPP_128
     from ._common import (device_record, load_or_make_bench_keys,
                           require_cuda)
     require_cuda()
     batch = int(sys.argv[1]) if len(sys.argv) > 1 else 4096
+    backend = sys.argv[2] if len(sys.argv) > 2 else "auto"
     _, ek = load_or_make_bench_keys(TFHEPP_128.name)
-    keys = prepare_keys(ek, "cuda")
-    rec = breakdown(keys, TFHEPP_128, batch)
-    print(json.dumps({**rec, "params": TFHEPP_128.name,
+    keys = prepare_keys(ek, "cuda", (resolve_backend(backend),))
+    rec = breakdown(keys, TFHEPP_128, batch, backend=backend)
+    print(json.dumps({**rec, "params": TFHEPP_128.name, "backend": backend,
                       "device": device_record()}))
     return 0
 

@@ -53,7 +53,11 @@
 // extprod_kernel: acc[b,o,c] += sum_li (sum_{r,t} dec[b,r,t] *
 // L_li[r,o][N + c - t]) << 8*li, where L_li is limb li of the extended
 // generator ext = [-bk, bk] (prepare_bk_ext), on the tensor cores
-// (mma.sync m16n8k32 s8.s8.s32).
+// (mma.sync m16n8k32 s8.s8.s32). The reduced-precision pallas3 key keeps
+// limbs 1-3 of the four (pallas_br.py:57-62, 907-920): its instance
+// extprod_kernel<BK, 3, WO> contracts against three windows, shifts limb li
+// by 8*(li+1), and issues 3/4 of the four-limb instance's MMAs. Nothing
+// else changes; the arithmetic is the JAX kernel's bit for bit.
 //
 // The product as a GEMM, per step: M = B rows, K = I*N (r, t) contraction
 // bytes, W = (k+1)*4*N columns (o, limb, c). dec, as rotdec writes it, is
@@ -89,16 +93,30 @@
 // What this version does about it: the probe's schedule, which the probe
 // measured at exactly this GEMM shape (its k1step case): a block owns 128
 // batch rows x 32 outputs x 4 limbs of one component; 8 warps of 64 rows x
-// (8 outputs x 4 limbs) each; a 3-stage cp.async ring of 128-byte
-// contraction slices of dec (XOR-swizzled for ldmatrix, rows at or above B
-// zero-filled) and key windows. A warp's four n8 tiles are the four limbs
-// of the same 8 outputs, so every thread holds all four limb sums of its
-// outputs and the epilogue, acc += sum_li sums_li << 8*li in uint32, runs
-// in registers.
+// (8 outputs x 4 limbs) each (WO = 1 octet of outputs a warp); a 3-stage
+// cp.async ring of 128-byte contraction slices of dec (XOR-swizzled for
+// ldmatrix, rows at or above B zero-filled) and key windows. A warp's four
+// n8 tiles are the four limbs of the same 8 outputs, so every thread holds
+// all four limb sums of its outputs and the epilogue, acc += sum_li
+// sums_li << 8*li in uint32, runs in registers. At three limbs the same
+// block (extprod_kernel<128, 3, 1>) is 96 columns: the A tile is re-read
+// from L2 once per 96 columns instead of 128, and the ldmatrix, barrier
+// and copy work of a stage is spread over 3/4 of the MMAs, so it runs at a
+// lower MMA rate than the exact instance.
+// The pallas3 path therefore runs extprod_kernel<256, 3, 2> where N >= 256:
+// a warp holds two octets of outputs (64 outputs, 192 columns a block, 96
+// int32 sums a thread), which halves the A traffic and doubles the MMAs
+// per ldmatrix; at 196 registers one block fits an SM, with no second
+// block to run while its warps wait at a stage's barrier, so the stage is
+// 256 contraction bytes, half as many barriers. On an H100 it ran at
+// 312.6 ms a rotation against <128, 3, 1>'s 369.1 at tfhepp_128bit, batch
+// 4096 (PERF.md), so cufhe_blind_rotate takes it wherever N >= 256 and
+// <128, 3, 1> only at N = 128.
 // Each (b, o, c) belongs to one block, so the in-place update has no race.
-// For N < 128 the stage is 32 bytes wide (one mma k-step). The int32 sums
-// of the tensor cores are exact while I*N*2^(dbits-1)*128 < 2^31 (2^24.6
-// at tfhepp_128bit); cufhe_blind_rotate refuses any set where it is not.
+// For N < 128 the stage is 32 bytes wide (one mma k-step); BK | N always.
+// The int32 sums of the tensor cores are exact while I*N*2^(dbits-1)*128
+// < 2^31 (2^24.6 at tfhepp_128bit); cufhe_blind_rotate refuses any set
+// where it is not.
 // wgmma, TMA, Karatsuba leaves and a persistent kernel that keeps acc on
 // chip across the n0 steps are later work.
 #include <climits>
@@ -109,7 +127,7 @@
 
 namespace {
 
-constexpr int kLimbs = 4;
+constexpr int kLimbs = 4;                          // limbs of an exact key
 constexpr int kLimbBits = 8;
 
 // rotdec_kernel's tiling: threads per block, and quads (4 coefficients) per
@@ -121,30 +139,33 @@ constexpr int kRotMaxNbit = 15;                    // a row of 128 KB
 
 // extprod_kernel's tiling
 constexpr int kBM = 128;                           // batch rows per block
-constexpr int kBNc = 32;                           // outputs c per block
 constexpr int kWarpsM = 2;
-constexpr int kWarpsN = kBNc / 8;                  // 8 outputs x 4 limbs each
+constexpr int kWarpsN = 4;                         // warps across outputs
 constexpr int kThreads = 32 * kWarpsM * kWarpsN;   // 256
 constexpr int kWM = kBM / kWarpsM;                 // 64 rows per warp
 constexpr int kMT = kWM / 16;                      // m16 tiles per warp
 constexpr int kStages = 3;                         // cp.async ring depth
 
-// Shared memory of one ring stage for a contraction width of BK bytes: the
-// A tile (kBM rows of BK bytes), then one window of BK + kBNc key bytes per
-// limb, each followed by 16 bytes that are read (by lanes whose run starts
-// on a word boundary) but never used.
-template <int BK>
+// The shape of extprod_kernel<BK, NL, WO>: contraction stages of BK bytes,
+// NL key limbs, WO octets of outputs per warp, so a block computes kBNc =
+// 32 * WO outputs c of one component, NL * kBNc mma columns. Shared memory
+// of one ring stage: the A tile (kBM rows of BK bytes), then one window of
+// BK + kBNc key bytes per limb, each followed by 16 bytes that are read (by
+// lanes whose run starts on a word boundary) but never used.
+template <int BK, int NL, int WO>
 struct Stage {
+  static constexpr int kBNc = 8 * WO * kWarpsN;    // outputs c per block
   static constexpr int kChunks = BK / 16;          // 16-byte chunks per row
   static constexpr int kA = kBM * BK;
   static constexpr int kWin = BK + kBNc;           // window bytes per limb
   static constexpr int kWinChunks = kWin / 16;
   static constexpr int kWinStride = kWin + 16;
-  static constexpr int kBytes = kA + kLimbs * kWinStride;
+  static constexpr int kBytes = kA + NL * kWinStride;
   static constexpr int kSmem = kStages * kBytes;
   static_assert((kBM * kChunks) % kThreads == 0, "A tile copy");
-  static_assert(kLimbs * kWinChunks <= kThreads, "window copy");
+  static_assert(NL * kWinChunks <= kThreads, "window copy");
   static_assert(BK % 32 == 0 && kBytes % 16 == 0, "stage layout");
+  static_assert(NL >= 1 && NL <= kLimbs, "limbs");
 };
 
 // Byte offset of 16-byte chunk c of row r in an A tile of BK-byte rows: the
@@ -153,7 +174,7 @@ struct Stage {
 template <int BK>
 __device__ __forceinline__ uint32_t swz(int r, int c) {
   return static_cast<uint32_t>(
-      r * BK + ((c ^ (r & (Stage<BK>::kChunks - 1))) << 4));
+      r * BK + ((c ^ (r & (BK / 16 - 1))) << 4));
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -343,23 +364,27 @@ __device__ __forceinline__ void mma(int (&c)[4], const uint32_t (&a)[4],
 }
 
 // acc [B, kp1, N] += the external product of dec [B, I*N] with the key of
-// one step, bk_i [I, kp1, 4, 2N]. Grid: (kp1 * N/kBNc column blocks,
-// ceil(B/kBM) row blocks); kThreads threads; Stage<BK>::kSmem bytes.
-template <int BK>
+// one step, bk_i [I, kp1, NL, 2N], whose limb li is worth 2^(8(li + 4 -
+// NL)): 4 limbs are the exact key, 3 the reduced-precision pallas3 key
+// (the lowest limb dropped, pallas_br.py:57-62), whose instance issues 3/4
+// of the exact instance's MMAs. Grid: (kp1 * N/kBNc column blocks,
+// ceil(B/kBM) row blocks); kThreads threads; Stage<BK, NL, WO>::kSmem
+// bytes.
+template <int BK, int NL, int WO>
 __global__ void __launch_bounds__(kThreads)
 extprod_kernel(uint32_t* __restrict__ acc, const int8_t* __restrict__ dec,
                const int8_t* __restrict__ bk_i, int B, int N, int kp1,
                int I) {
-  using St = Stage<BK>;
+  using St = Stage<BK, NL, WO>;
   extern __shared__ __align__(128) uint8_t smem[];
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int wm = (warp / kWarpsN) * kWM;
-  const int wn = warp % kWarpsN;                 // outputs c0 + 8*wn + 0..7
-  const int cblocks = N / kBNc;
+  const int wn = warp % kWarpsN;        // outputs c0 + 8*(WO*wn + oo) + 0..7
+  const int cblocks = N / St::kBNc;
   const int o = blockIdx.x / cblocks;
-  const int c0 = (blockIdx.x - o * cblocks) * kBNc;
+  const int c0 = (blockIdx.x - o * cblocks) * St::kBNc;
   const int b0 = blockIdx.y * kBM;
   const size_t KB = static_cast<size_t>(I) * N;  // contraction bytes per row
   const int per_r = N / BK;                      // stages per key row r
@@ -379,37 +404,39 @@ extprod_kernel(uint32_t* __restrict__ acc, const int8_t* __restrict__ dec,
                           static_cast<size_t>(s) * BK + c * 16;
       cp_async16(sa + swz<BK>(r, c), src, b < B ? 16 : 0);
     }
-    if (tid < kLimbs * St::kWinChunks) {
+    if (tid < NL * St::kWinChunks) {
       const int li = tid / St::kWinChunks;
       const int ch = tid - li * St::kWinChunks;
       const int r = s / per_r;
       const int t0 = (s - r * per_r) * BK;
       const int8_t* gen =
-          bk_i + ((static_cast<size_t>(r) * kp1 + o) * kLimbs + li) * 2 * N;
+          bk_i + ((static_cast<size_t>(r) * kp1 + o) * NL + li) * 2 * N;
       cp_async16(sa + St::kA + li * St::kWinStride + ch * 16,
                  gen + (N + c0 - t0 - BK) + ch * 16, 16);
     }
   };
 
-  // B fragment of n8 tile li at k-step kk: register h (contraction bytes
-  // 32*kk + 16*h + 4*q + e, e = 0..3) of column c = c0 + 8*wn + g holds
-  // window bytes x = 8*wn + g + BK - 32*kk - 16*h - 4*q - e, i.e. bytes
-  // xa+3, xa+2, xa+1, xa of the window with xa = 4*m + sh: word m and the
-  // next, byte-permuted. sh and the word m at kk = h = 0 depend on the
-  // lane only.
+  // B fragment of n8 tile (oo, li) at k-step kk: register h (contraction
+  // bytes 32*kk + 16*h + 4*q + e, e = 0..3) of column c = c0 + 8*ow + g,
+  // ow = WO*wn + oo, holds window bytes x = 8*ow + g + BK - 32*kk - 16*h -
+  // 4*q - e, i.e. bytes xa+3, xa+2, xa+1, xa of the window with xa = 4*m +
+  // sh: word m and the next, byte-permuted. sh and the word m at kk = h =
+  // oo = 0 depend on the lane only; the next octet is 2 words on.
   const int g = lane >> 2, q = lane & 3;
   const int sh = (g + 1) & 3;
   const uint32_t sel = (sh + 3) | ((sh + 2) << 4) | ((sh + 1) << 8) |
                        (sh << 12);
-  const int m0 = 2 * wn + BK / 4 - q - 1 + ((g + 1) >> 2);
+  const int m0 = 2 * WO * wn + BK / 4 - q - 1 + ((g + 1) >> 2);
 
-  int sums[kMT][kLimbs][4];
+  int sums[kMT][WO][NL][4];
 #pragma unroll
   for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-    for (int li = 0; li < kLimbs; ++li)
+    for (int oo = 0; oo < WO; ++oo)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) sums[mt][li][e] = 0;
+      for (int li = 0; li < NL; ++li)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sums[mt][oo][li][e] = 0;
 
   // Prologue: kStages-1 groups are always committed (some may be empty), so
   // wait_group<kStages-2> at iteration t always means "stage t has landed".
@@ -439,63 +466,73 @@ extprod_kernel(uint32_t* __restrict__ acc, const int8_t* __restrict__ dec,
         ldmatrix_x4(af[mt], a_base + swz<BK>(r, 2 * kk + (lane >> 4)));
       }
 #pragma unroll
-      for (int li = 0; li < kLimbs; ++li) {
-        const uint32_t* w = win + li * (St::kWinStride / 4) + m0 - 8 * kk;
-        const uint32_t b0f = __byte_perm(w[0], w[1], sel);
-        const uint32_t b1f = __byte_perm(w[-4], w[-3], sel);
+      for (int oo = 0; oo < WO; ++oo) {
 #pragma unroll
-        for (int mt = 0; mt < kMT; ++mt) mma(sums[mt][li], af[mt], b0f, b1f);
+        for (int li = 0; li < NL; ++li) {
+          const uint32_t* w =
+              win + li * (St::kWinStride / 4) + m0 + 2 * oo - 8 * kk;
+          const uint32_t b0f = __byte_perm(w[0], w[1], sel);
+          const uint32_t b1f = __byte_perm(w[-4], w[-3], sel);
+#pragma unroll
+          for (int mt = 0; mt < kMT; ++mt)
+            mma(sums[mt][oo][li], af[mt], b0f, b1f);
+        }
       }
     }
   }
   cp_async_wait<0>();
 
-  // C fragment e of tile (mt, li): row g + 8*(e >> 1), column 2*q + (e & 1).
-  const int c = c0 + 8 * wn + 2 * q;
+  // C fragment e of tile (mt, oo, li): row g + 8*(e >> 1), column
+  // 2*q + (e & 1) of octet oo.
 #pragma unroll
   for (int mt = 0; mt < kMT; ++mt) {
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
       const int b = b0 + wm + mt * 16 + g + 8 * hf;
       if (b >= B) continue;
-      uint32_t v0 = 0, v1 = 0;
 #pragma unroll
-      for (int li = 0; li < kLimbs; ++li) {
-        v0 += static_cast<uint32_t>(sums[mt][li][2 * hf]) << (kLimbBits * li);
-        v1 += static_cast<uint32_t>(sums[mt][li][2 * hf + 1])
-              << (kLimbBits * li);
+      for (int oo = 0; oo < WO; ++oo) {
+        uint32_t v0 = 0, v1 = 0;
+#pragma unroll
+        for (int li = 0; li < NL; ++li) {
+          const int shift = kLimbBits * (li + kLimbs - NL);
+          v0 += static_cast<uint32_t>(sums[mt][oo][li][2 * hf]) << shift;
+          v1 += static_cast<uint32_t>(sums[mt][oo][li][2 * hf + 1]) << shift;
+        }
+        const int c = c0 + 8 * (WO * wn + oo) + 2 * q;
+        uint2* p = reinterpret_cast<uint2*>(
+            acc + (static_cast<size_t>(b) * kp1 + o) * N + c);
+        uint2 cur = *p;
+        cur.x += v0;
+        cur.y += v1;
+        *p = cur;
       }
-      uint2* p = reinterpret_cast<uint2*>(
-          acc + (static_cast<size_t>(b) * kp1 + o) * N + c);
-      uint2 cur = *p;
-      cur.x += v0;
-      cur.y += v1;
-      *p = cur;
     }
   }
 }
 
-// The n0 steps of one rotation, with contraction stages of BK bytes.
-template <int BK>
+// The n0 steps of one rotation through extprod_kernel<BK, NL, WO>.
+template <int BK, int NL, int WO>
 cudaError_t rotate(uint32_t* acc, const int32_t* abar, const int8_t* key,
                    int8_t* dec, int B, int n0, int N, int nbit, int kp1,
                    int l, int Bgbit, int nd, int dbits, uint32_t off,
                    cudaStream_t s) {
+  using St = Stage<BK, NL, WO>;
   cudaError_t err = cudaFuncSetAttribute(
-      extprod_kernel<BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Stage<BK>::kSmem);
+      extprod_kernel<BK, NL, WO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      St::kSmem);
   if (err != cudaSuccess) return err;
   RotdecPlan plan;
   err = rotdec_plan(nbit, l, nd, &plan);
   if (err != cudaSuccess) return err;
   const int I = kp1 * l * nd;
-  const size_t key_step = static_cast<size_t>(I) * kp1 * kLimbs * 2 * N;
-  const dim3 grid(kp1 * (N / kBNc), (B + kBM - 1) / kBM);
+  const size_t key_step = static_cast<size_t>(I) * kp1 * NL * 2 * N;
+  const dim3 grid(kp1 * (N / St::kBNc), (B + kBM - 1) / kBM);
   for (int i = 0; i < n0; ++i) {
     err = launch_rotdec(plan, acc, abar + static_cast<size_t>(i) * B, dec, B,
                         nbit, kp1, l, Bgbit, nd, dbits, off, s);
     if (err != cudaSuccess) return err;
-    extprod_kernel<BK><<<grid, kThreads, Stage<BK>::kSmem, s>>>(
+    extprod_kernel<BK, NL, WO><<<grid, kThreads, St::kSmem, s>>>(
         acc, dec, key + i * key_step, B, N, kp1, I);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -503,20 +540,27 @@ cudaError_t rotate(uint32_t* acc, const int32_t* abar, const int8_t* key,
   return cudaSuccess;
 }
 
+using RotateFn = cudaError_t (*)(uint32_t*, const int32_t*, const int8_t*,
+                                 int8_t*, int, int, int, int, int, int, int,
+                                 int, int, uint32_t, cudaStream_t);
+
 }  // namespace
 
 // One blind rotation of B accumulators, in place. acc [B, k+1, N] and
 // abar [n0, B] are int32 (torus values as uint32 bits), bk_ext is
-// [n0, I, k+1, 4, 2N] int8 with I = (k+1)*l*nd, dec is scratch of
-// B*I*N bytes. Enqueues 2*n0 kernels on `stream` and returns the first
-// launch error as a cudaError_t value (0 on success); it does not wait.
-// Sets whose limb sums could leave int32 (I*N*2^(dbits-1)*128 >= 2^31),
-// N < 32, N > 2^kRotMaxNbit and the other arguments args_ok refuses are
-// refused with cudaErrorInvalidValue.
+// [n0, I, k+1, nlimbs, 2N] int8 with I = (k+1)*l*nd, dec is scratch of
+// B*I*N bytes. nlimbs is 4 (the exact key) or 3 (pallas3, N >= 128); the
+// product's instance follows from nlimbs and N. Enqueues 2*n0 kernels on
+// `stream` and returns the first launch error as a cudaError_t value (0 on
+// success); it does not wait.
+// Another nlimbs, a three-limb key at N < 128, sets whose limb sums could
+// leave int32 (I*N*2^(dbits-1)*128 >= 2^31), N < 32, N > 2^kRotMaxNbit and
+// the other arguments args_ok refuses are refused with
+// cudaErrorInvalidValue.
 extern "C" int cufhe_blind_rotate(void* acc, const void* abar,
                                   const void* bk_ext, void* dec, int B,
                                   int n0, int N, int nbit, int k, int l,
-                                  int Bgbit, int nd, int dbits,
+                                  int Bgbit, int nd, int dbits, int nlimbs,
                                   unsigned int off_const, void* stream) {
   if (n0 < 0 || !args_ok(acc, dec, B, N, nbit, k, l, Bgbit, nd, dbits))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -529,12 +573,16 @@ extern "C" int cufhe_blind_rotate(void* acc, const void* abar,
   const auto* key = static_cast<const int8_t*>(bk_ext);
   auto* dec_i8 = static_cast<int8_t*>(dec);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      N >= 128 ? rotate<128>(acc_u, abar_i, key, dec_i8, B, n0, N, nbit, kp1,
-                             l, Bgbit, nd, dbits, off_const, s)
-               : rotate<32>(acc_u, abar_i, key, dec_i8, B, n0, N, nbit, kp1,
-                            l, Bgbit, nd, dbits, off_const, s);
-  return static_cast<int>(err);
+  RotateFn run = nullptr;
+  if (nlimbs == 4)
+    run = N >= 128 ? rotate<128, 4, 1> : rotate<32, 4, 1>;
+  else if (nlimbs == 3 && N >= 256)
+    run = rotate<256, 3, 2>;
+  else if (nlimbs == 3 && N >= 128)
+    run = rotate<128, 3, 1>;
+  if (run == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(run(acc_u, abar_i, key, dec_i8, B, n0, N, nbit,
+                              kp1, l, Bgbit, nd, dbits, off_const, s));
 }
 
 // One step's rotate-and-decompose alone: dec [B, I, N] int8 from acc

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import warnings
 from typing import Optional, Sequence
 
 import numpy as np
@@ -89,6 +90,16 @@ def _ready_event(t: torch.Tensor) -> Optional[torch.cuda.Event]:
     return ev
 
 
+def _warn_pallas3() -> None:
+    """The JAX package's warning on every pallas3 Context (its
+    models/api.py:78-87), word for word."""
+    warnings.warn(
+        "backend='pallas3' is an EXPERIMENTAL reduced-precision "
+        "mode (~2.6 sigma worst-gate margin, per-gate failure "
+        "rates ~1e-3 for XOR-class gates on bootstrapped inputs); "
+        "prefer the default exact backend", stacklevel=3)
+
+
 class Context:
     """Server-side evaluation context on one device, or on a mesh.
 
@@ -97,17 +108,22 @@ class Context:
     on the first). `backend` takes the JAX package's names
     (ops.bootstrap.resolve_backend) and is kept as given in self.backend:
     every exact name runs the blind rotation of ops/blind_rotate.py (the
-    CUDA kernel on CUDA tensors, its plain version on CPU tensors), "ntt"
-    the RAINTT-prime path of ops/ntt.py on the same device.
+    CUDA kernel on CUDA tensors, its plain version on CPU tensors),
+    "pallas3" the same rotation with a three-limb key (reduced precision:
+    it warns, as the JAX package does), "ntt" the RAINTT-prime path of
+    ops/ntt.py on the same device.
     """
 
     #: DeviceKeys fields of each key form, the unit of release_keys and
     #: prepare_backend (ops.keys.KEY_FORMS): "pallas" is the exact blind
-    #: rotation's key, "ntt" the ntt path's, "ksk" every key switch's
+    #: rotation's key, "pallas3" its three-limb form, "ntt" the ntt path's,
+    #: "ksk" every key switch's
     _BACKEND_KEY_FIELDS = K.KEY_FORMS
 
     def __init__(self, ek: G.EvalKey, backend: str = "auto", mesh=None, *,
                  device="cuda"):
+        if backend == "pallas3":
+            _warn_pallas3()
         self._path = resolve_backend(backend)
         self.backend = backend
         self.params: GateParams = ek.params
@@ -139,12 +155,12 @@ class Context:
         must not hold two key sets.
 
         backends=None frees every key; an exact backend name such as
-        ("pallas",) frees the blind rotation's key, ("ntt",) the ntt
-        path's, ("ksk",) the key switch's. The copies on stream and mesh
-        devices are always dropped. Work already enqueued is waited for
-        first, and the caching allocator hands the memory back to the
-        device. Gates raise ValueError until prepare_backend restores the
-        keys."""
+        ("pallas",), or ("pallas3",), frees the blind rotation's key,
+        ("ntt",) the ntt path's, ("ksk",) the key switch's. The copies on
+        stream and mesh devices are always dropped. Work already enqueued
+        is waited for first, and the caching allocator hands the memory
+        back to the device. Gates raise ValueError until prepare_backend
+        restores the keys."""
         names = (self._BACKEND_KEY_FIELDS if backends is None
                  else [self._key_form(b) for b in backends])
         fields = {f for b in names for f in self._BACKEND_KEY_FIELDS[b]}
@@ -159,8 +175,9 @@ class Context:
 
     def prepare_backend(self, ek: G.EvalKey, backend: str = "auto") -> None:
         """(Re-)build one key form from the host EvalKey on the context's
-        device (an exact backend name: the blind rotation's key; "ntt": the
-        ntt path's; "ksk": the key switch's), and the key switch's too if a
+        device (an exact backend name: the blind rotation's key; "pallas3":
+        that key at three limbs, in its place; "ntt": the ntt path's;
+        "ksk": the key switch's), and the key switch's too if a
         release dropped it, and copy the keys to the mesh's devices again:
         the inverse of release_keys. A backend name also switches the
         context's path to it."""
@@ -168,6 +185,8 @@ class Context:
             raise ValueError(f"eval key is for {ek.params.name}, the context "
                              f"for {self.params.name}; use reinitialize")
         form = self._key_form(backend)
+        if form == "pallas3":
+            _warn_pallas3()
         forms = {form}
         if not self.keys.ksk_limbs_sei.numel():
             forms.add("ksk")
@@ -185,6 +204,8 @@ class Context:
         (its parameters may differ) on the same device, or mesh. Ciphertexts
         of the old set are invalid."""
         path = resolve_backend(backend)
+        if path == "pallas3":
+            _warn_pallas3()
         self.release_keys()
         self.params = ek.params
         self.backend, self._path = backend, path

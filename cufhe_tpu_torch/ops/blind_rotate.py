@@ -6,11 +6,16 @@ for i = 0 .. n0-1, batched over B accumulators [B, k+1, N].
 
 Two versions of the same function live here:
 
-* blind_rotate_ref, plain PyTorch built on ops/poly.py: rotate, decompose
-  (rotdec_ref) and a materialised negacyclic Toeplitz product per step.
-  Exact on the CPU and on CUDA.
+* blind_rotate_ref, plain PyTorch: rotate, decompose (rotdec_ref) and a
+  materialised negacyclic Toeplitz product per step, built from the key
+  windows the kernel reads. Exact on the CPU and on CUDA.
 * blind_rotate_cuda, the hand-written CUDA kernels (csrc/blind_rotate.cu),
   reading the key in the layout prepare_bk_ext builds.
+
+Both take the key at four limbs (the exact path) or three (the reduced-
+precision `pallas3` path of the JAX package: the lowest of the four
+balanced limbs dropped, pallas_br.py:57-62); the limb count is the key's
+shape[3].
 
 One step's rotate-and-decompose has the same pair, rotdec_ref and
 rotdec_cuda (the kernel blind_rotate_cuda launches once per step), so the
@@ -25,13 +30,34 @@ import numpy as np
 import torch
 
 from ..params import GateParams
-from .limbs import NLIMBS, decomp_digit_limb_plan, u32_to_signed_limbs
-from .poly import (decompose_rotate_sub, negacyclic_conv_toeplitz,
-                   split_decomp_digits)
+from ..torus import int_mm
+from .limbs import (LIMB_BITS, NLIMBS, decomp_digit_limb_plan,
+                    u32_to_signed_limbs)
+from .poly import decompose_rotate_sub, split_decomp_digits
+
+#: key limb counts the rotation takes: 4 is exact, 3 the `pallas3` path
+KEY_LIMBS = (3, 4)
+#: the least N of a three-limb key: the JAX package's pallas3 kernel needs
+#: N % 128 == 0 (pallas_br.py:343, 816)
+PALLAS3_MIN_N = 128
 
 
-def prepare_bk_ext(bk: np.ndarray, params: GateParams) -> np.ndarray:
-    """BK [n0, (k+1)l, k+1, N] uint32 -> [n0, I, k+1, NLIMBS, 2N] int8.
+def check_key_limbs(nlimbs: int, params: GateParams) -> None:
+    """Raise ValueError unless the rotation takes an `nlimbs`-limb key at
+    `params`: 4 anywhere, 3 where the JAX package's pallas3 runs."""
+    if nlimbs not in KEY_LIMBS:
+        raise ValueError(f"a key has 4 limbs (exact) or 3 (pallas3), not "
+                         f"{nlimbs}")
+    if nlimbs == 3 and params.lvl1.n < PALLAS3_MIN_N:
+        raise ValueError(
+            f"backend 'pallas3' needs N >= {PALLAS3_MIN_N}, as the JAX "
+            f"package's pallas3 kernel does (N % 128 == 0); "
+            f"{params.name} has N = {params.lvl1.n}")
+
+
+def prepare_bk_ext(bk: np.ndarray, params: GateParams,
+                   nlimbs: int = NLIMBS) -> np.ndarray:
+    """BK [n0, (k+1)l, k+1, N] uint32 -> [n0, I, k+1, nlimbs, 2N] int8.
 
     Row r of I = (k+1)*l*nd holds, for each output component o, the
     balanced 8-bit limbs of the extended generator ext = [-bk, bk]: the
@@ -39,8 +65,12 @@ def prepare_bk_ext(bk: np.ndarray, params: GateParams) -> np.ndarray:
     ext[N + c - t], so any tile of it is one contiguous window of ext. The
     negation is done in uint32 before the limb split, so no int8 -128 is
     ever negated. For Bgbit > 8 the nd sub-digit rows of gadget row r use
-    the generator bk[r] << dbits*dl (scaled in uint32, exact).
+    the generator bk[r] << dbits*dl (scaled in uint32, exact). nlimbs = 3
+    keeps limbs 1-3 of the four-limb split, limb li worth 2^(8(li+1)): the
+    JAX package's pallas3 key (prepare_wext, pallas_br.py:907-920), which
+    truncates each scaled generator and each negation on its own.
     """
+    check_key_limbs(nlimbs, params)
     n0, I0, kp1, N = bk.shape
     nd, dbits = decomp_digit_limb_plan(params.lvl1.Bgbit)
     if nd > 1:
@@ -52,7 +82,8 @@ def prepare_bk_ext(bk: np.ndarray, params: GateParams) -> np.ndarray:
     ext = np.empty(bk.shape[:3] + (2 * N,), dtype=np.uint32)
     ext[..., :N] = np.zeros_like(bk) - bk
     ext[..., N:] = bk
-    limbs = u32_to_signed_limbs(ext)                 # [n0, I, k+1, 2N, L]
+    limbs = u32_to_signed_limbs(ext)                 # [n0, I, k+1, 2N, 4]
+    limbs = limbs[..., NLIMBS - nlimbs:]
     return np.ascontiguousarray(np.moveaxis(limbs, 4, 3))
 
 
@@ -69,21 +100,36 @@ def rotdec_ref(acc: torch.Tensor, abar_i: torch.Tensor,
     return torch.stack(parts, dim=2).reshape(B, rows * len(parts), N)
 
 
+def ext_product_ref(dec: torch.Tensor, bk_i: torch.Tensor) -> torch.Tensor:
+    """One step's external product, plain: [B, k+1, N] int32 =
+    sum_li (sum_{r,t} dec[b, r, t] * ext_li[r, o][N + c - t]) << shift_li
+    mod 2^32, the negacyclic Toeplitz operator of every key row built
+    from its window of ext as the kernel reads it. dec: [B, I, N] int8;
+    bk_i: [I, k+1, L, 2N] int8, one step of prepare_bk_ext; limb li is
+    worth 2^(8(li + 4 - L))."""
+    B, I, N = dec.shape
+    _, kp1, L, _ = bk_i.shape
+    t = torch.arange(N, device=dec.device)
+    T = bk_i[..., N + t[None, :] - t[:, None]]        # [I, k+1, L, t, c]
+    T = T.permute(2, 0, 3, 1, 4).reshape(L, I * N, kp1 * N)
+    lhs = dec.reshape(B, I * N)
+    out = torch.zeros((B, kp1 * N), dtype=torch.int32, device=dec.device)
+    for li in range(L):
+        out += int_mm(lhs, T[li]) << (LIMB_BITS * (li + NLIMBS - L))
+    return out.reshape(B, kp1, N)
+
+
 def blind_rotate_ref(acc: torch.Tensor, abar: torch.Tensor,
                      bk_ext: torch.Tensor, params: GateParams) -> torch.Tensor:
     """Plain PyTorch blind rotation. acc: [B, k+1, N] int32; abar: [n0, B]
     int32 switched rotations in [0, 2N); bk_ext as prepare_bk_ext builds
-    it, of which only the limbs of bk itself are read (row r*nd of gadget
-    row r, second half). Returns a new [B, k+1, N] int32 tensor."""
-    lp = params.lvl1
-    N = lp.n
-    nd, bits = decomp_digit_limb_plan(lp.Bgbit)
+    it, at 4 or 3 limbs. Digit row (r, dl) of each step contracts against
+    its own pre-scaled key row r*nd + dl, as the kernel and the JAX
+    kernel do: with 3 limbs, truncating bk << dbits is not truncating bk
+    and then shifting. Returns a new [B, k+1, N] int32 tensor."""
     for i in range(params.lvl0.dim):
-        bk_limbs = bk_ext[i, ::nd, :, :, N:].permute(2, 0, 1, 3)
-        dec = rotdec_ref(acc, abar[i], params)
-        for dl in range(nd):
-            upd = negacyclic_conv_toeplitz(dec[:, dl::nd], bk_limbs, lp.k)
-            acc = acc + (upd << (bits * dl))
+        acc = acc + ext_product_ref(rotdec_ref(acc, abar[i], params),
+                                    bk_ext[i])
     return acc
 
 
@@ -120,14 +166,17 @@ def _raise_on(lib, rc: int, entry: str) -> None:
 
 
 def blind_rotate_cuda(acc: torch.Tensor, abar: torch.Tensor,
-                      bk_ext: torch.Tensor, params: GateParams) -> torch.Tensor:
+                      bk_ext: torch.Tensor, params: GateParams
+                      ) -> torch.Tensor:
     """One blind rotation through the CUDA kernels.
 
     acc: [B, k+1, N] int32, abar: [n0, B] int32, bk_ext as prepare_bk_ext
-    builds it, all contiguous on one CUDA device. The kernels update their
-    accumulator in place, so they are given a clone: `acc` is left
-    unchanged and the result is returned. Enqueued on the current stream;
-    raises if the kernels cannot be built or launched.
+    builds it at 4 or 3 limbs, all contiguous on one CUDA device. The
+    kernels update their accumulator in place, so they are given a clone:
+    `acc` is left unchanged and the result is returned. The C entry picks
+    the product kernel's instance from the limb count and N. Enqueued on
+    the current stream; raises if the kernels cannot be built or
+    launched.
     """
     from .._build import load
 
@@ -135,10 +184,14 @@ def blind_rotate_cuda(acc: torch.Tensor, abar: torch.Tensor,
     N, nbit, k, l, Bgbit, nd, dbits, off = _decomp_args(params)
     I = (k + 1) * l * nd
     B = acc.shape[0]
+    nlimbs = bk_ext.shape[3] if bk_ext.dim() == 5 else 0
+    if nlimbs not in KEY_LIMBS:
+        raise ValueError(f"bk_ext: want [n0, I, k+1, 4 or 3, 2N] int8, got "
+                         f"{tuple(bk_ext.shape)}")
     _check_cuda({"acc": (acc, torch.int32, (B, k + 1, N)),
                  "abar": (abar, torch.int32, (n0, B)),
                  "bk_ext": (bk_ext, torch.int8,
-                            (n0, I, k + 1, NLIMBS, 2 * N))})
+                            (n0, I, k + 1, nlimbs, 2 * N))})
     lib = load()
     out = acc.clone()
     dec = torch.empty((B, I, N), dtype=torch.int8, device=acc.device)
@@ -146,16 +199,20 @@ def blind_rotate_cuda(acc: torch.Tensor, abar: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.cufhe_blind_rotate(
             out.data_ptr(), abar.data_ptr(), bk_ext.data_ptr(),
-            dec.data_ptr(), B, n0, N, nbit, k, l, Bgbit, nd, dbits, off,
-            stream)
+            dec.data_ptr(), B, n0, N, nbit, k, l, Bgbit, nd, dbits, nlimbs,
+            off, stream)
     _raise_on(lib, rc, "cufhe_blind_rotate")
     blind_rotate_cuda.launches += 1
+    blind_rotate_cuda.by_nlimbs[nlimbs] += 1
     rotdec_cuda.launches += n0
     return out
 
 
-#: blind rotations launched through the kernels (one per successful call)
+#: blind rotations launched through the kernels (one per successful call),
+#: in all and by the key's limb count: 4 the exact instance of the product
+#: kernel, 3 the pallas3 instance
 blind_rotate_cuda.launches = 0
+blind_rotate_cuda.by_nlimbs = dict.fromkeys(KEY_LIMBS, 0)
 
 
 def rotdec_cuda(acc: torch.Tensor, abar_i: torch.Tensor,
@@ -203,9 +260,17 @@ def rotdec(acc: torch.Tensor, abar_i: torch.Tensor,
 
 
 def blind_rotate(acc: torch.Tensor, abar: torch.Tensor, bk_ext: torch.Tensor,
-                 params: GateParams) -> torch.Tensor:
+                 params: GateParams, nlimbs: int = NLIMBS) -> torch.Tensor:
     """Blind rotation on acc's device: the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors. There is no fallback between them."""
+    the plain version for CPU tensors. There is no fallback between them.
+    nlimbs is the path's key precision (4 exact, 3 pallas3): a key of
+    another limb count raises ValueError, so no path runs the other's
+    key."""
+    check_key_limbs(nlimbs, params)
+    if bk_ext.dim() != 5 or bk_ext.shape[3] != nlimbs:
+        raise ValueError(f"the path reads a {nlimbs}-limb key, bk_ext is "
+                         f"{tuple(bk_ext.shape)} (limbs in dim 3): prepare "
+                         f"the key for this backend")
     if acc.device.type == "cuda":
         return blind_rotate_cuda(acc, abar, bk_ext, params)
     if acc.device.type == "cpu":

@@ -14,9 +14,10 @@ user TRGSW, refresh and the TLWE -> TRLWE bootstrap.
 
 Every op that rotates takes the JAX package's `backend=` name
 (resolve_backend). The exact backends go through ops/blind_rotate.py: the
-CUDA kernel for CUDA tensors, its plain version for CPU tensors. "ntt" runs
-the RAINTT-prime external product of ops/ntt.py as torch ops on the
-tensors' device, and never the kernel.
+CUDA kernel for CUDA tensors, its plain version for CPU tensors; so does
+"pallas3", with a three-limb key (the kernel's three-limb instance, never
+the exact one). "ntt" runs the RAINTT-prime external product of
+ops/ntt.py as torch ops on the tensors' device, and never the kernel.
 """
 from __future__ import annotations
 
@@ -39,22 +40,21 @@ from .poly import (batched_test_vector, decompose, decompose_rotate_sub,
 #: each other ("auto" picks one of them there); the port runs every one as
 #: its one exact path (the blind rotation of ops/blind_rotate.py)
 EXACT_BACKENDS = ("auto", "pallas", "conv", "toeplitz")
+#: the port's paths: the exact rotation, its reduced-precision `pallas3`
+#: instance (a three-limb key), the RAINTT `ntt` path
+PATHS = ("pallas", "pallas3", "ntt")
 
 
 def resolve_backend(backend: str) -> str:
     """The port's path for a JAX backend name: "pallas" for every exact
-    backend, "ntt" for the RAINTT parity path; the reduced-precision
-    "pallas3" is left out of the port, and any other name is refused."""
+    backend, "pallas3" for the reduced-precision one, "ntt" for the RAINTT
+    parity path; any other name is refused."""
     if backend in EXACT_BACKENDS:
         return "pallas"
-    if backend == "ntt":
-        return "ntt"
-    if backend == "pallas3":
-        raise NotImplementedError("backend 'pallas3' (reduced precision) is "
-                                  "left out of the port; use an exact "
-                                  f"backend, one of {EXACT_BACKENDS}")
+    if backend in PATHS:
+        return backend
     raise ValueError(f"unknown backend {backend!r}; the port's backends are "
-                     f"{EXACT_BACKENDS} and 'ntt'")
+                     f"{EXACT_BACKENDS}, 'pallas3' and 'ntt'")
 
 
 def _mod_switch(phase: torch.Tensor, nbit: int) -> torch.Tensor:
@@ -154,9 +154,11 @@ def blind_rotate_acc(acc: torch.Tensor, a: torch.Tensor, keys: DeviceKeys,
     else:
         abar = _mod_switch(a + (1 << (32 - 2 - lp.nbit)), lp.nbit)
     abar = abar.T.contiguous()
-    if resolve_backend(backend) == "ntt":
+    path = resolve_backend(backend)
+    if path == "ntt":
         return blind_rotate_ntt(acc, abar, keys, params)
-    return BR.blind_rotate(acc, abar, keys.bk_ext, params)
+    return BR.blind_rotate(acc, abar, keys.bk_ext, params,
+                           3 if path == "pallas3" else 4)
 
 
 def blind_rotate_ntt(acc: torch.Tensor, abar: torch.Tensor, keys: DeviceKeys,

@@ -26,9 +26,10 @@ class DeviceKeys:
     """Evaluation keys on one device. A field of a form the context does
     not use is an empty tensor.
 
-    bk_ext: [n0, I, k+1, NLIMBS, 2N] int8, I = (k+1)*l*nd: the limbs of the
-        extended generators [-bk, bk] (blind_rotate.prepare_bk_ext). The
-        CUDA kernel and the plain blind rotation both read it.
+    bk_ext: [n0, I, k+1, L, 2N] int8, I = (k+1)*l*nd: the limbs of the
+        extended generators [-bk, bk] (blind_rotate.prepare_bk_ext), L = 4
+        for the exact path, 3 (the top three) for pallas3. The CUDA kernel
+        and the plain blind rotation both read it.
     ksk_limbs_sei: [NLIMBS, t*numbase*k*N, n0+1] int8 with contraction
         index (dig*numbase + m)*k*N + j, each component's rows permuted by
         the negacyclic reversal j -> (N - j) mod N, so
@@ -96,8 +97,10 @@ def prepare_trgsw(trgsw: np.ndarray, params: GateParams,
 
 #: the DeviceKeys fields of each key form, the unit of preparation and of
 #: Context.release_keys: "pallas" is the exact blind rotation's key,
-#: "ntt" the ntt path's, "ksk" every key switch's
+#: "pallas3" the same field at three limbs, "ntt" the ntt path's, "ksk"
+#: every key switch's
 KEY_FORMS = {"pallas": ("bk_ext",),
+             "pallas3": ("bk_ext",),
              "ntt": ("bk_ntt", "bk_ntt_shoup"),
              "ksk": ("ksk_limbs_sei", "sei_perm")}
 
@@ -109,8 +112,9 @@ _EMPTY_DTYPES = {"bk_ext": torch.int8, "ksk_limbs_sei": torch.int8,
 def _build_form(ek: EvalKey, form: str, device) -> dict:
     """The fields of one key form, converted on the host and uploaded."""
     p = ek.params
-    if form == "pallas":
-        host = {"bk_ext": prepare_bk_ext(ek.bk, p)}
+    if form in ("pallas", "pallas3"):
+        host = {"bk_ext": prepare_bk_ext(ek.bk, p,
+                                         3 if form == "pallas3" else NLIMBS)}
     elif form == "ntt":
         fwd, shoup = prepare_bk_ntt(ek.bk, p)
         return {"bk_ntt": from_u32(fwd, device),
@@ -126,7 +130,11 @@ def _build_form(ek: EvalKey, form: str, device) -> dict:
 
 def prepare_fields(ek: EvalKey, forms, device="cuda") -> dict:
     """The DeviceKeys fields of the named key forms on `device`
-    (Context.prepare_backend rebuilds released ones with it)."""
+    (Context.prepare_backend rebuilds released ones with it). "pallas" and
+    "pallas3" share bk_ext: one key precision per context, as in the JAX
+    package (keys.py:144-148)."""
+    if "pallas" in forms and "pallas3" in forms:
+        raise ValueError("choose one pallas key precision per Context")
     out = {}
     for form in forms:
         out.update(_build_form(ek, form, device))
@@ -137,7 +145,8 @@ def prepare_keys(ek: EvalKey, device="cuda",
                  backends=("pallas",)) -> DeviceKeys:
     """One-time host-side key conversion and upload to `device` (by
     default the card): the key switch's form and those of `backends` (key
-    forms: "pallas" and/or "ntt"); every other field is left empty."""
+    forms: "pallas" or "pallas3", and/or "ntt"); every other field is left
+    empty."""
     device = torch.device(device)
     fields = prepare_fields(ek, ("ksk", *backends), device)
     for name, dtype in _EMPTY_DTYPES.items():

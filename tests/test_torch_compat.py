@@ -8,7 +8,7 @@ import torch
 
 import cufhe_tpu.compat as jcf
 import cufhe_tpu_torch.compat as cf
-from cufhe_tpu_torch import TINY
+from cufhe_tpu_torch import PALLAS_TINY, TINY
 from cufhe_tpu_torch.torus import to_u32
 
 
@@ -120,8 +120,9 @@ def test_keys_and_gate_equal_original(keys):
 
 def test_backend_names():
     """Initialize takes the JAX package's backend names, ntt among them:
-    a gate then runs the ntt path and decrypts right; pallas3 is left
-    out, unknown names are refused."""
+    a gate then runs the ntt path and decrypts right; pallas3 is accepted
+    with the JAX package's warning (at N >= 128: TINY's N = 64 is refused
+    with ValueError), unknown names are refused."""
     cf.SetSeed(7)
     pri, pub = cf.PriKey(TINY), cf.PubKey(TINY)
     cf.KeyGen(pub, pri)
@@ -137,8 +138,22 @@ def test_backend_names():
         cf.Nand(out, a, b)
         cf.Decrypt(pt, out, pri)
         assert pt.message_ == 0
-        with pytest.raises(NotImplementedError, match="pallas3"):
+        with pytest.warns(UserWarning, match="EXPERIMENTAL"), \
+                pytest.raises(ValueError, match="pallas3"):
             cf.Initialize(pub, backend="pallas3", device="cpu")
+        cf.SetSeed(8)
+        pri3, pub3 = cf.PriKey(PALLAS_TINY), cf.PubKey(PALLAS_TINY)
+        cf.KeyGen(pub3, pri3)
+        with pytest.warns(UserWarning, match="EXPERIMENTAL"):
+            cf.Initialize(pub3, backend="pallas3", device="cpu")
+        assert cf._ctx.backend == "pallas3"
+        assert cf._ctx.keys.bk_ext.shape[3] == 3
+        a, b, out, pt = cf.Ctxt(), cf.Ctxt(), cf.Ctxt(), cf.Ptxt()
+        cf.Encrypt(a, cf.Ptxt(1), pri3)
+        cf.Encrypt(b, cf.Ptxt(1), pri3)
+        cf.Nand(out, a, b)
+        cf.Decrypt(pt, out, pri3)
+        assert pt.message_ == 0
         with pytest.raises(ValueError, match="unknown backend"):
             cf.Initialize(pub, backend="cuda", device="cpu")
     finally:

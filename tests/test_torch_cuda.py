@@ -588,3 +588,117 @@ def test_two_shard_mesh_on_one_card_equals_plain(cuda):
     out = mesh_ctx.nand(a, b)
     assert BR.blind_rotate_cuda.launches == before + 2
     assert torch.equal(out.data, Context(ek).nand(a, b).data)
+
+
+def _random_bk_ext3(params, seed, device):
+    """The three-limb (pallas3) layout of the random BK _random_bk_ext
+    draws from the same seed: limbs 1-3 of its four."""
+    return _random_bk_ext(params, seed, device)[:, :, :, 1:].contiguous()
+
+
+def _rotate3(acc, abar, bk_ext3, params):
+    """One three-limb rotation through the kernel, counted: the pallas3
+    instance launched once, the exact one not at all."""
+    before = dict(BR.blind_rotate_cuda.by_nlimbs)
+    got = BR.blind_rotate_cuda(acc, abar, bk_ext3, params)
+    torch.cuda.synchronize()
+    assert BR.blind_rotate_cuda.by_nlimbs == {3: before[3] + 1,
+                                              4: before[4]}
+    return got
+
+
+#: the tiny sets of the three-limb instances: N = 128 runs 32 outputs a
+#: block, N = 512 64 outputs a block
+TINY3 = [P.PALLAS_TINY, P.PALLAS_TINY_K2, P.PALLAS_BG10, P.PALLAS_KAR,
+         P.PALLAS_BG10_KAR]
+
+
+@pytest.mark.parametrize("rows", [1, 8, 129])
+@pytest.mark.parametrize("params", TINY3, ids=lambda p: p.name)
+def test_cuda_pallas3_kernel_matches_ref(params, rows, cuda):
+    """The three-limb instances equal the plain version at the tiny sets
+    (and the CPU's plain version) as uint32."""
+    bk_ext3 = _random_bk_ext3(params, 130, cuda)
+    acc, abar = _random_inputs(params, rows, 131, cuda)
+    got = _rotate3(acc, abar, bk_ext3, params)
+    assert torch.equal(got, BR.blind_rotate_ref(acc, abar, bk_ext3, params))
+    assert torch.equal(got.cpu(), BR.blind_rotate_ref(
+        acc.cpu(), abar.cpu(), bk_ext3.cpu(), params))
+
+
+@pytest.mark.parametrize("params", [P.TFHEPP_128, P.TFHEPP_80],
+                         ids=lambda p: p.name)
+def test_cuda_pallas3_kernel_matches_ref_full_presets(params, cuda):
+    """At full width: tfhepp_128bit and tfhepp_80bit (nd = 2), 8 rows."""
+    bk_ext3 = _random_bk_ext3(params, 132, cuda)
+    acc, abar = _random_inputs(params, 8, 133, cuda)
+    got = _rotate3(acc, abar, bk_ext3, params)
+    assert torch.equal(got, BR.blind_rotate_ref(acc, abar, bk_ext3, params))
+
+
+def test_cuda_refuses_other_limb_counts(cuda):
+    """cufhe_blind_rotate takes nlimbs 3 or 4, three limbs only at
+    N >= 128; anything else is cudaErrorInvalidValue (1) and launches
+    nothing. The wrapper refuses a key of another limb count with
+    ValueError, and raises the C entry's refusal."""
+    from cufhe_tpu_torch._build import load
+    lib = load()
+
+    def call(params, nlimbs, rows=2):
+        N, nbit, k, l, Bgbit, nd, dbits, off = BR._decomp_args(params)
+        I = (k + 1) * l * nd
+        acc, abar = _random_inputs(params, rows, 134, cuda)
+        bk = torch.zeros((params.n0, I, k + 1, max(nlimbs, 1), 2 * N),
+                         dtype=torch.int8, device=cuda)
+        dec = torch.empty((rows, I, N), dtype=torch.int8, device=cuda)
+        return lib.cufhe_blind_rotate(
+            acc.data_ptr(), abar.data_ptr(), bk.data_ptr(), dec.data_ptr(),
+            rows, params.n0, N, nbit, k, l, Bgbit, nd, dbits, nlimbs, off,
+            torch.cuda.current_stream().cuda_stream)
+
+    for nlimbs in (0, 1, 2, 5, 8):
+        assert call(P.PALLAS_TINY, nlimbs) == 1, nlimbs
+    assert call(P.TINY, 3) == 1 and call(P.TINY, 4) == 0  # N = 64
+    assert call(P.PALLAS_TINY, 3) == 0 and call(P.PALLAS_TINY, 4) == 0
+    assert call(P.PALLAS_KAR, 3) == 0 and call(P.PALLAS_KAR, 4) == 0
+    torch.cuda.synchronize()
+    bk2 = _random_bk_ext(P.PALLAS_TINY, 135, cuda)[:, :, :, 2:].contiguous()
+    acc, abar = _random_inputs(P.PALLAS_TINY, 2, 136, cuda)
+    before = BR.blind_rotate_cuda.launches
+    with pytest.raises(ValueError, match="4 or 3"):
+        BR.blind_rotate_cuda(acc, abar, bk2, P.PALLAS_TINY)
+    acc64, abar64 = _random_inputs(P.TINY, 2, 136, cuda)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        BR.blind_rotate_cuda(acc64, abar64, _random_bk_ext3(P.TINY, 135,
+                                                            cuda), P.TINY)
+    assert BR.blind_rotate_cuda.launches == before
+
+
+@pytest.mark.parametrize("params", [P.PALLAS_TINY, P.PALLAS_BG10],
+                         ids=lambda p: p.name)
+def test_cuda_pallas3_context_equals_the_cpu(params, cuda):
+    """Context(ek, "pallas3") on the card equals the same context on the
+    CPU as uint32 (nand, xor, mux), through the three-limb instance only,
+    and decrypts right."""
+    import warnings
+    sk, ek = _keys(params, 137)
+    rng = np.random.default_rng(138)
+    bits0, bits1, bitsc = [0, 1, 0, 1], [0, 0, 1, 1], [1, 0, 1, 0]
+    hosts = [G.encrypt_bit_batch(x, sk, rng) for x in (bits0, bits1, bitsc)]
+    outs = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        for dev in ("cuda", "cpu"):
+            ctx = Context(ek, "pallas3", device=dev)
+            a, b, c = (Ctxt(from_u32(h, dev), 0) for h in hosts)
+            before = dict(BR.blind_rotate_cuda.by_nlimbs)
+            outs[dev] = [ctx.nand(a, b), ctx.xor(a, b), ctx.mux(c, a, b)]
+            launched = {nl: BR.blind_rotate_cuda.by_nlimbs[nl] - before[nl]
+                        for nl in before}
+            assert launched == ({3: 4, 4: 0} if dev == "cuda"
+                                else {3: 0, 4: 0})
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        assert np.array_equal(to_u32(got.data), to_u32(want.data))
+    assert decrypt_bits(outs["cuda"][0], sk).tolist() == [1, 1, 1, 0]
+    assert decrypt_bits(outs["cuda"][1], sk).tolist() == [0, 1, 1, 0]
+    assert decrypt_bits(outs["cuda"][2], sk).tolist() == [0, 0, 0, 1]

@@ -5,6 +5,7 @@ import pytest
 import torch
 
 from cufhe_tpu import golden as G
+from cufhe_tpu import params as P
 from cufhe_tpu.models import api as JA
 from cufhe_tpu_torch import Context, Ctxt, decrypt_bits, encrypt_bits
 from cufhe_tpu_torch.models.gates import TWO_INPUT
@@ -110,12 +111,23 @@ def test_context_takes_the_reference_backend_names(backend, setup):
 
 def test_context_refuses_unported_and_unknown_backends(tiny_key):
     """"ntt" builds a context holding only the ntt key form; the
-    reduced-precision pallas3 and unknown names are refused."""
+    reduced-precision pallas3 is accepted with the JAX package's warning
+    and a three-limb key (at N >= 128, as the JAX kernel needs; TINY's
+    N = 64 is refused with ValueError); unknown names are refused."""
     _, ek = tiny_key
     ntt = Context(ek, "ntt", device="cpu")
     assert ntt.backend == "ntt" and ntt.keys.bk_ntt.numel() > 0
     assert ntt.keys.bk_ext.numel() == 0
-    with pytest.raises(NotImplementedError, match="reduced precision"):
+    sk3 = G.keygen(P.PALLAS_TINY, seed=92)
+    ek3 = G.make_eval_key(sk3, seed=93)
+    with pytest.warns(UserWarning, match="EXPERIMENTAL reduced-precision"):
+        p3 = Context(ek3, backend="pallas3", device="cpu")
+    assert p3.backend == "pallas3" and p3.keys.bk_ext.shape[3] == 3
+    rng = np.random.default_rng(94)
+    a, b = (encrypt_bits(x, sk3, rng, device="cpu") for x in (BITS0, BITS1))
+    assert decrypt_bits(p3.nand(a, b), sk3).tolist() == [1, 1, 1, 0]
+    with pytest.warns(UserWarning), pytest.raises(ValueError,
+                                                  match="N >= 128"):
         Context(ek, backend="pallas3", device="cpu")
     for name in ("cuda", "cpu", "definitely-not-a-backend"):
         with pytest.raises(ValueError, match="unknown backend"):

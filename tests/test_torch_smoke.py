@@ -7,6 +7,7 @@ import pathlib
 import pytest
 
 from cufhe_tpu_torch import params as P
+from cufhe_tpu_torch.benchmarks import rotation as RT
 
 _SPEC = importlib.util.spec_from_file_location(
     "chip_smoke", pathlib.Path(__file__).resolve().parent.parent
@@ -38,13 +39,13 @@ def test_rotation_bound_at_tfhepp_128():
     """One rotation at batch 4096: 636 steps of a 4096 x 6144 x 8192 int8
     product, 132.5 ms at 1,979 dense int8 TOPS; its 140 MB of device
     memory would take 0.04 ms."""
-    macs, nbytes = smoke.rotation_work(P.TFHEPP_128, 4096)
+    macs, nbytes = RT.rotation_work(P.TFHEPP_128, 4096)
     assert macs == 4096 * 6144 * 8192 * 636
     assert nbytes == 2 * 4096 * 2 * 1024 * 4 + 636 * 4096 * 4 \
         + 636 * 6 * 2 * 4 * 2048
-    ms, by = smoke.bound(2 * macs, nbytes)
+    ms, by = RT.bound(2 * macs, nbytes)
     assert by == "operations" and ms == pytest.approx(132.508, abs=1e-3)
-    assert smoke.bound(0, nbytes) == (pytest.approx(nbytes / 3.35e9), "bytes")
+    assert RT.bound(0, nbytes) == (pytest.approx(nbytes / 3.35e9), "bytes")
 
 
 @pytest.mark.parametrize("params", [P.PALLAS_BG10, P.TINY_K2],
@@ -53,7 +54,7 @@ def test_rotation_work_counts_sub_digit_rows_and_components(params):
     """I = (k+1) * l * nd rows of the contraction, (k+1) * 4 * N columns."""
     lp = params.lvl1
     nd = 2 if lp.Bgbit > 8 else 1
-    macs, _ = smoke.rotation_work(params, 3)
+    macs, _ = RT.rotation_work(params, 3)
     assert macs == 3 * ((lp.k + 1) * lp.l * nd * lp.n) \
         * ((lp.k + 1) * 4 * lp.n) * params.n0
 
@@ -112,5 +113,59 @@ def test_rotdec_bound_is_the_benchs_bound():
     assert not hasattr(smoke, "HBM_BYTES_PER_S")
     assert RD.HBM_BYTES_PER_S is _common.HBM_BYTES_PER_S
     nbytes = RD.rotdec_bytes(P.TFHEPP_128, 4096)
-    ms, by = smoke.bound(0, nbytes)
+    ms, by = RT.bound(0, nbytes)
     assert by == "bytes" and ms == nbytes / RD.HBM_BYTES_PER_S * 1e3
+
+
+def test_rotation_bound_at_three_limbs():
+    """The pallas3 rotation contracts against three limbs: 3/4 of the
+    exact rotation's MACs, 99.4 ms at batch 4096, and a 46.9 MB key."""
+    macs, nbytes = RT.rotation_work(P.TFHEPP_128, 4096, 3)
+    assert macs == 4096 * 6144 * 6144 * 636
+    assert 4 * macs == 3 * RT.rotation_work(P.TFHEPP_128, 4096)[0]
+    assert nbytes == 2 * 4096 * 2 * 1024 * 4 + 636 * 4096 * 4 \
+        + 636 * 6 * 2 * 3 * 2048
+    ms, by = RT.bound(2 * macs, nbytes)
+    assert by == "operations" and ms == pytest.approx(99.381, abs=1e-3)
+
+
+_SASS = """\
+	code for sm_90a
+		Function : _ZN12_GLOBAL__N_114extprod_kernelILi128ELi3ELi1EEEvPjPKaS3_iiii
+        /*0a10*/                   IMMA.16832.S8.S8 R24, R100.ROW, R8.COL, R24 ;
+        /*0a20*/                   IMMA.16832.S8.S8 R28, R104.ROW, R8.COL, R28 ;
+        /*0a30*/                   LDSM.16.M88.4 R100, [R3] ;
+		Function : _ZN12_GLOBAL__N_113rotdec_kernelILi3ELi1EEEvPKjPKiPaiiiiiiiij
+        /*0100*/                   PRMT R5, R4, 0x40, R6 ;
+		Function : _ZN12_GLOBAL__N_114extprod_kernelILi128ELi4ELi1EEEvPjPKaS3_iiii
+        /*0a10*/                   IMMA.16832.S8.S8 R24, R100.ROW, R8.COL, R24 ;
+"""
+
+
+def test_sass_mma_counts_per_instance():
+    """Phase 20 counts the IMMA instructions of each extprod_kernel
+    instance in cuobjdump's SASS, by template arguments."""
+    assert smoke.sass_mma_counts(_SASS) == {
+        "extprod_kernel<128, 3, 1>": 2, "rotdec_kernel<3, 1>": 0,
+        "extprod_kernel<128, 4, 1>": 1}
+    assert smoke.sass_mma_counts("") == {}
+
+
+def test_pallas3_sets_are_presets_with_n_128_or_more():
+    """Phase 20's sets exist, take the three-limb key (N >= 128), and the
+    full-width ones include the main path's batch."""
+    from cufhe_tpu_torch.ops.blind_rotate import check_key_limbs
+    for name, rows in smoke.PALLAS3_SETS:
+        check_key_limbs(3, P.PRESETS[name])
+        assert rows
+    full = [name for name, rows in smoke.PALLAS3_SETS if smoke.BATCH in rows]
+    assert full == ["tfhepp_128bit", "tfhepp_80bit"]
+
+
+def test_library_sass_raises_without_a_dump(tmp_path):
+    """Phase 20's MMA count cannot be skipped: library_sass raises where
+    cuobjdump is missing, fails, or dumps no extprod_kernel instance."""
+    import subprocess
+    with pytest.raises((FileNotFoundError, subprocess.CalledProcessError,
+                        AssertionError)):
+        smoke.library_sass(tmp_path / "missing.so")
