@@ -7,10 +7,11 @@ Phases, each raising on failure:
   1. the card's name and power limit (nvidia-smi);
   2. build of the CUDA kernels from csrc/ (nvcc, sm_90a, one process per
      source), timed, with ptxas's registers and spills per kernel (a spill,
-     a missing kernel or ptxas's C7508 warning, setmaxnreg ignored, fails
-     the phase);
+     a missing kernel or instance, ptxas's C7508 warning, setmaxnreg
+     ignored, or its note that it serialised wgmma fails the phase);
   3. the blind-rotation kernels against their plain PyTorch version, bit
-     for bit, on random accumulators (8 and 129 rows) at ten parameter
+     for bit, on random accumulators (1, 8, 65 and 129 rows: 1 and 65
+     split the product's contraction across blocks) at ten parameter
      sets, every published preset among them: the whole rotation, and the
      rotate-and-decompose kernel alone (rotdec_cuda against rotdec_ref,
      rotations 0, N-1, N and 2N-1 among the rows);
@@ -96,12 +97,13 @@ Phases, each raising on failure:
      plus 01_gates.py --full run in this process, each printing its
      success line; the kernel's launches of the phase are counted;
  20. the reduced-precision pallas3 path (run after 18): the three-limb
-     instances of the product kernel against the plain version bit for
-     bit at PALLAS_TINY, PALLAS_TINY_K2, PALLAS_BG10 (N = 128: 32 outputs
-     a block) and PALLAS_KAR, PALLAS_BG10_KAR (N = 512: 64 outputs a
-     block), 8 and 129 rows, and at tfhepp_128bit and tfhepp_80bit (129
-     and 4096 rows); each instance's IMMA count in the SASS (cuobjdump,
-     which must run: three limbs must be 3/4 of four); both key
+     instance of the product kernel against the plain version bit for
+     bit at PALLAS_TINY, PALLAS_TINY_K2, PALLAS_BG10 (N = 128) and
+     PALLAS_KAR, PALLAS_BG10_KAR (N = 512), 8 and 129 rows, and at
+     tfhepp_128bit and tfhepp_80bit (129 and 4096 rows); each instance's
+     warpgroup MMAs (IGMMA) and warp-level MMAs (IMMA) in the SASS
+     (cuobjdump, which must run: no IMMA anywhere, and three limbs issue
+     3/4 of four's IGMMA a stage); both key
      precisions timed in turns at the main path's shape
      (benchmarks/rotation.py); phase 5's chain on Context(ek, "pallas3") with 0 decrypt errors, the
      three-limb instance launched once a gate and the exact one never;
@@ -133,6 +135,10 @@ REPLACES = "cufhe_tpu/ops/pallas_br.py:762"
 ROTDEC_REPLACES = "cufhe_tpu/ops/pallas_br.py:428"
 #: launches of rotdec_kernel timed alone (the median is reported)
 ROTDEC_LAUNCHES = 25
+#: the product kernel's instances, extprod_kernel<NL, SEG>: four limbs at
+#: N >= 128, 64 and 32; three limbs at N >= 128
+EXTPROD_INSTANCES = ("extprod_kernel<4, 128>", "extprod_kernel<4, 64>",
+                     "extprod_kernel<4, 32>", "extprod_kernel<3, 128>")
 PROBE_SOURCE = "cufhe_tpu_torch/csrc/mxu_peak.cu"
 WGMMA_SOURCE = "cufhe_tpu_torch/csrc/mxu_peak_wgmma.cu"
 PROBE_REPLACES = "benchmarks/mxu_peak.py:116"
@@ -229,9 +235,11 @@ def ptxas_report(log_text: str):
 
 
 def ptxas_warnings(log_text: str) -> list:
-    """ptxas's warning lines in nvcc's build log."""
+    """ptxas's warning lines in nvcc's build log, and its notes that it
+    serialised wgmma (C7510/C7511, printed as info)."""
     return [line.strip() for line in log_text.splitlines()
-            if line.lstrip().startswith("ptxas") and "warning" in line]
+            if line.lstrip().startswith("ptxas")
+            and ("warning" in line or "Performance Loss" in line)]
 
 
 # -- golden jobs for worker processes (phase 9) ------------------------------
@@ -1381,9 +1389,11 @@ def phase_profile(ctx, sk, tag: str) -> None:
                                  f"{key}, want {n0}")
 
 
-def sass_mma_counts(sass: str) -> dict:
-    """{kernel instance: IMMA instructions} in cuobjdump -sass output.
-    Loops count once: these are the unrolled bodies."""
+def sass_mma_counts(sass: str, opcode: str = "IMMA") -> dict:
+    """{kernel instance: instructions of `opcode`} in cuobjdump -sass
+    output: IMMA, the warp-level int8 MMA (mma.sync), or IGMMA, the
+    warpgroup int8 MMA that wgmma s8 compiles to. Loops count once: these
+    are the unrolled bodies."""
     import re
     counts, name = {}, None
     for line in sass.splitlines():
@@ -1395,7 +1405,7 @@ def sass_mma_counts(sass: str) -> dict:
                     if k else None)
             if name:
                 counts[name] = 0
-        elif name and "IMMA" in line:
+        elif name and re.search(rf"\b{opcode}\.", line):
             counts[name] += 1
     return counts
 
@@ -1420,8 +1430,8 @@ def library_sass(lib_path) -> str:
 def phase_pallas3(ek, sk, p5, tag: str) -> dict:
     """20. The reduced-precision pallas3 path: the three-limb instances of
     extprod_kernel against the plain version bit for bit (PALLAS3_SETS);
-    their IMMA counts; both key precisions timed in turns
-    (benchmarks/rotation.py); a batch-4096 NAND chain on a pallas3
+    every instance's IGMMA and IMMA counts; both key precisions timed in
+    turns (benchmarks/rotation.py); a batch-4096 NAND chain on a pallas3
     Context on phase 5's inputs with its decrypt errors and launches (the
     three-limb instance once a gate, the exact one never); one profiled
     pallas3 NAND; the margins at batch 2048 (benchmarks/noise.py) beside
@@ -1462,18 +1472,18 @@ def phase_pallas3(ek, sk, p5, tag: str) -> dict:
             del acc, abar, want, got
         del key3
 
-    mma = {k: v for k, v in sass_mma_counts(library_sass(
-        _build.build_dir() / _build.LIB_NAME)).items()
-        if k.startswith("extprod")}
-    log(f"SASS IMMA instructions per unrolled stage (cuobjdump): "
-        f"{json.dumps(mma)}")
-    # per stage: <128, 3, 1> covers the contraction and outputs of
-    # <128, 4, 1>; <256, 3, 2> twice the contraction and twice the outputs
-    if not mma or (4 * mma["extprod_kernel<128, 3, 1>"]
-                   != 3 * mma["extprod_kernel<128, 4, 1>"]
-                   or mma["extprod_kernel<256, 3, 2>"]
-                   != 4 * mma["extprod_kernel<128, 3, 1>"]):
-        raise AssertionError("a three-limb instance does not issue 3/4 of "
+    sass = library_sass(_build.build_dir() / _build.LIB_NAME)
+    gmma, imma = ({k: v for k, v in sass_mma_counts(sass, op).items()
+                   if k.startswith("extprod")} for op in ("IGMMA", "IMMA"))
+    log(f"SASS per unrolled stage (cuobjdump): IGMMA (wgmma s8) "
+        f"{json.dumps(gmma)}, IMMA (mma.sync) {json.dumps(imma)}")
+    if (set(gmma) != set(EXTPROD_INSTANCES) or any(imma.values())
+            or not all(gmma.values())):
+        raise AssertionError("an extprod_kernel instance is missing, holds "
+                             "an IMMA or no IGMMA")
+    # per stage, at the same tile: NL wgmma a k-step
+    if 4 * gmma["extprod_kernel<3, 128>"] != 3 * gmma["extprod_kernel<4, 128>"]:
+        raise AssertionError("the three-limb instance does not issue 3/4 of "
                              "the four-limb instance's MMAs")
 
     recs = {r["nlimbs"]: r for r in RT.measure(T.TFHEPP_128, BATCH)}
@@ -1484,7 +1494,10 @@ def phase_pallas3(ek, sk, p5, tag: str) -> dict:
             f"{r['tmacs_per_sec']:.2f} int8 TMAC/s, bound "
             f"{r['bound_ms']:.1f} ms ({r['bound_by']}), "
             f"{100 * r['share_of_bound']:.1f} % of it; library "
-            f"torch._int_mm x n0 {r['library_ms']:.1f} ms {tag}")
+            f"torch._int_mm x n0 {r['library_ms']:.1f} ms; profiled, the "
+            f"product {r['product_ms_a_launch']:.4f} ms a launch "
+            f"({100 * r['product_share_of_bound']:.1f} % of its bound), "
+            f"rotdec_kernel {r['rotdec_us_a_launch']:.2f} us {tag}")
     mine = recs[3]
 
     bits0, bits1, a, b, exact, _, gate_rate = p5
@@ -1554,7 +1567,8 @@ def phase_pallas3(ek, sk, p5, tag: str) -> dict:
     if noise["decrypt_errors"]:
         raise AssertionError("pallas3 NANDs decrypt wrong")
     return {"name": "blind_rotate_pallas3", "route": "cuda",
-            "source": SOURCE, "replaces": REPLACES, "launches": launches[3],
+            "instruction": "wgmma", "source": SOURCE, "replaces": REPLACES,
+            "launches": launches[3],
             "max_abs_err": max_err, "ms": mine["ms"], "plain_ms": plain_ms,
             "bound_ms": mine["bound_ms"], "bound_by": mine["bound_by"],
             "library_ms": mine["library_ms"], "ms_four_limbs": recs[4]["ms"],
@@ -1603,16 +1617,17 @@ def main() -> int:
                  "mxu_peak_wgmma_kernel"):
         if not any(name.split("<")[0] == want for name, _, _ in report):
             raise AssertionError(f"no ptxas report for {want}")
-    for want in ("extprod_kernel<128, 4, 1>", "extprod_kernel<128, 3, 1>",
-                 "extprod_kernel<256, 3, 2>"):
+    for want in EXTPROD_INSTANCES:
         if not any(name == want for name, _, _ in report):
             raise AssertionError(f"no ptxas report for {want}")
     for line in ptxas_warnings(build_log):
         log(f"  {line}")
         if "C7508" in line:
             raise AssertionError("ptxas ignored setmaxnreg (C7508)")
+        if "wgmma" in line and "serialized" in line:
+            raise AssertionError(f"ptxas serialised wgmma: {line}")
 
-    # 3. kernels vs plain versions at ten parameter sets, 8 and 129 rows
+    # 3. kernels vs plain versions at ten parameter sets, 1 to 129 rows
     max_err = rotdec_err = 0
     presets = (T.PALLAS_TINY, T.PALLAS_TINY_K2, T.PALLAS_BG10, T.TINY,
                T.TFHEPP_128, *(T.PRESETS[name] for name in FULL_PRESETS))
@@ -1622,7 +1637,7 @@ def main() -> int:
         ek = G.make_eval_key(sk, seed=200 + i)
         eks[params.name] = (sk, ek)
         keys = prepare_keys(ek, dev)
-        for rows in (8, 129):
+        for rows in (1, 8, 65, 129):
             acc, abar = random_rotation_inputs(params, rows, 300 + i, dev)
             before = BR.blind_rotate_cuda.launches
             got = BR.blind_rotate_cuda(acc, abar, keys.bk_ext, params)
@@ -1798,8 +1813,9 @@ def main() -> int:
     log(f"chip_smoke: every phase passed in {time.perf_counter() - started:.1f}"
         f" s (host clock) {tag}")
     log(json.dumps({"kernels": [
-        {"name": "blind_rotate", "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES, "launches": launches, "max_abs_err": max_err,
+        {"name": "blind_rotate", "route": "cuda", "instruction": "wgmma",
+         "source": SOURCE, "replaces": REPLACES, "launches": launches,
+         "max_abs_err": max_err,
          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
          "bound_by": bound_by, "library_ms": library_ms,
          "launches_integers": int_launches_run,

@@ -32,6 +32,8 @@ from .params import (CGGI19, CONCRETE, DEFAULT, PALLAS_BG10, PALLAS_BG10_KAR,
                      RADIX4_2048, TFHEPP_128, TFHEPP_128_BG8, TFHEPP_80, TINY,
                      TINY_K2, TINY_Q, GateParams)
 
+__version__ = "0.1.0"
+
 __all__ = ["Context", "Ctxt", "TrlweCtxt", "decrypt_bits", "encrypt_bits",
            "GateParams", "PRESETS", "DEFAULT", "TFHEPP_128", "TFHEPP_128_BG8",
            "TFHEPP_80", "CGGI19", "CONCRETE", "RADIX4_2048", "TINY", "TINY_Q",

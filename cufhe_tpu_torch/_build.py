@@ -3,9 +3,9 @@
 Each source is compiled with nvcc for sm_90a by its own process, all started
 together, and the objects are linked into one shared library with a plain C
 interface, loaded with ctypes. The build happens at first use, into
-_build/<hash of sources and flags>/ beside this file, and is reused while
-the sources are unchanged. Without nvcc, or when the build fails, load()
-raises: there is no fallback.
+_build/<hash of the sources, the csrc/*.cuh headers they include and the
+flags>/ beside this file, and is reused while those are unchanged. Without
+nvcc, or when the build fails, load() raises: there is no fallback.
 
 load_host() does the same for the host-side circuit scheduler
 (runtime/_native/circuit.cpp), with g++ and no CUDA, into
@@ -38,6 +38,10 @@ def _sources() -> list[Path]:
     return sorted(SRC_DIR.glob("*.cu"))
 
 
+def _headers() -> list[Path]:
+    return sorted(SRC_DIR.glob("*.cuh"))
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -54,7 +58,7 @@ def _nvcc() -> str:
 def build_dir() -> Path:
     """The directory this tree's sources build into."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + _headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / h.hexdigest()[:16]
@@ -108,7 +112,7 @@ def load() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         lib.cufhe_blind_rotate.argtypes = (
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
-            + [ctypes.c_uint, ctypes.c_void_p])
+            + [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p])
         lib.cufhe_blind_rotate.restype = ctypes.c_int
         lib.cufhe_rotdec.argtypes = (
             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8

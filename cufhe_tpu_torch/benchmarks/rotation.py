@@ -11,8 +11,11 @@ Both run on the same random accumulators and key (limbs 1-3 of the
 four-limb key are the three-limb key), once each, then timed with CUDA
 events (utils.timing.time_fn), one rotation a pair, in turns (each
 precision once, then in reverse order, `reps` times); the median is
-reported. Prints one JSON line per precision with the card's name and
-power limit; exits 2 without a CUDA device.
+reported. One more rotation at each precision runs under torch.profiler
+for the device time of each kernel a launch: the product
+(extprod_kernel) beside its int8 bound a launch, and rotdec_kernel.
+Prints one JSON line per precision with the card's name and power limit;
+exits 2 without a CUDA device.
 """
 from __future__ import annotations
 
@@ -90,10 +93,31 @@ def library_ms(params, rows: int, nlimbs: int, iters: int = 5) -> float:
             * params.lvl0.dim)
 
 
+def profile_launches(run) -> dict:
+    """{"product": [ms, launches], "rotdec": [ms, launches]}: the device
+    time of the two kernels in one call of `run` under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    out = {"product": [0.0, 0], "rotdec": [0.0, 0]}
+    for e in prof.events():
+        name = ("product" if "extprod_kernel" in e.name
+                else "rotdec" if "rotdec_kernel" in e.name else None)
+        if name and e.device_type == DeviceType.CUDA:
+            out[name][0] += e.device_time_total / 1e3
+            out[name][1] += 1
+    return out
+
+
 def measure(params, rows: int, reps: int = 2, seed: int = 40) -> list:
     """One record per key precision of CASES at `rows` accumulators: its
     median ms a rotation over 2*reps timed rotations, int8 TMAC/s, bound
-    and library time."""
+    and library time; and from one profiled rotation, the product's ms a
+    launch against its bound a launch, and rotdec_kernel's."""
     from ..ops import blind_rotate as BR
     acc, abar = random_rotation_inputs(params, rows, seed, "cuda")
     keys = random_keys(params, seed + 1, "cuda")
@@ -108,17 +132,26 @@ def measure(params, rows: int, reps: int = 2, seed: int = 40) -> list:
     for _ in range(reps):
         for nl in CASES + CASES[::-1]:
             times[nl].append(time_fn(run, nl, iters=1, warmup=0) * 1e3)
+    n0 = params.lvl0.dim
     recs = []
     for nl, ts in times.items():
         ms = statistics.median(ts)
         macs, nbytes = rotation_work(params, rows, nl)
         bound_ms, bound_by = bound(2 * macs, nbytes)
+        prof = profile_launches(lambda: run(nl))
+        launch_ms = prof["product"][0] / max(prof["product"][1], 1)
         recs.append({"params": params.name, "rows": rows, "nlimbs": nl,
                      "ms": ms, "ms_reps": ts,
                      "tmacs_per_sec": macs / ms / 1e9, "macs": macs,
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "share_of_bound": bound_ms / ms,
-                     "library_ms": library_ms(params, rows, nl)})
+                     "library_ms": library_ms(params, rows, nl),
+                     "product_ms_a_launch": launch_ms,
+                     "product_launches": prof["product"][1],
+                     "product_tmacs_per_sec": macs / n0 / launch_ms / 1e9,
+                     "product_share_of_bound": bound_ms / n0 / launch_ms,
+                     "rotdec_us_a_launch": 1e3 * prof["rotdec"][0]
+                     / max(prof["rotdec"][1], 1)})
     return recs
 
 

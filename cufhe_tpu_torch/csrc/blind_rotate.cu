@@ -51,79 +51,92 @@
 // is held, larger N are refused with cudaErrorInvalidValue.
 //
 // extprod_kernel: acc[b,o,c] += sum_li (sum_{r,t} dec[b,r,t] *
-// L_li[r,o][N + c - t]) << 8*li, where L_li is limb li of the extended
-// generator ext = [-bk, bk] (prepare_bk_ext), on the tensor cores
-// (mma.sync m16n8k32 s8.s8.s32). The reduced-precision pallas3 key keeps
-// limbs 1-3 of the four (pallas_br.py:57-62, 907-920): its instance
-// extprod_kernel<BK, 3, WO> contracts against three windows, shifts limb li
-// by 8*(li+1), and issues 3/4 of the four-limb instance's MMAs. Nothing
-// else changes; the arithmetic is the JAX kernel's bit for bit.
-//
-// The product as a GEMM, per step: M = B rows, K = I*N (r, t) contraction
-// bytes, W = (k+1)*4*N columns (o, limb, c). dec, as rotdec writes it, is
-// the row-major A operand [B, I*N]. The B operand is the negacyclic
-// Toeplitz operator of the key, T_li[(r, t), (o, c)] = ext_li[r,o][N+c-t]
-// (48 MB per step, 30 GB per key at tfhepp_128bit), and it is never built:
-// a block's slice of it for one stage, contraction (r, t0 .. t0+BK-1) and
-// outputs c0 .. c0+31 of component o, is, for each limb, the 16-byte
-// aligned window ext_li[r,o][N+c0-t0-BK .. N+c0-t0+32). With 32 | N and
-// BK | N every window lies inside [0, 2N), so nothing is masked.
-// cp.async brings the four windows into shared memory beside the A tile;
-// each thread then builds its mma B fragments in registers. A fragment
-// register holds four consecutive contraction bytes of one column, which
-// are four consecutive window bytes in reverse order, and within a warp the
-// byte offset of that run inside a 4-byte word depends only on the lane:
-// so every B register is one __byte_perm of two aligned window words (two
-// broadcast shared loads), and no B tile is written to shared memory.
+// L_li[r,o][N + c - t]) << 8*(li + 4 - NL), where L_li is limb li of the
+// extended generator ext = [-bk, bk] (prepare_bk_ext). NL = 4 is the exact
+// key; NL = 3 the reduced-precision pallas3 key, limbs 1-3 of the four
+// (pallas_br.py:57-62, 907-920), whose instance issues 3/4 of the exact
+// instance's MMAs. The arithmetic is the JAX kernel's bit for bit.
 //
 // What bounds it on an H100: int8 multiply-adds. At tfhepp_128bit one step
-// at B = 4096 is a 4096 x 6144 x 8192 product, 2.06e11 MACs, 0.208 ms at
-// the 1,979 TOPS dense int8 datasheet rate, against about 0.04 ms of
-// device-memory traffic (acc, 34 MB, read by rotdec, read and written
-// here; dec, 25 MB, written by rotdec and read here; 98 KB of key). Inside
-// the chip the A operand is re-read from L2 once per column block: with 128
-// mma columns per block (32 outputs x 4 limbs) that is 64 column blocks,
-// 1.6 GB of L2 reads per step, where the 128 x 64 tile of the probe
-// (csrc/mxu_peak.cu) would read 3.2 GB. 32 outputs is a good trade because
-// it keeps the probe's 64 x 32 warp tile, 64 int32 sums a thread, and
-// spreads the wider block over 8 warps instead of growing a warp's
-// registers; the B operand costs no L2 traffic at all (four windows of
-// BK+32 bytes per stage).
+// at B = 4096 is a 4096 x 6144 x 8192 product (batch rows x contraction
+// bytes (r, t) x columns (o, limb, c)), 2.06e11 MACs: 0.208 ms at the
+// 1,979 TOPS dense int8 data-sheet rate (0.156 ms at three limbs), against
+// about 0.04 ms of device-memory traffic. History: the earlier kernel on
+// mma.sync m16n8k32, the key's Toeplitz operator built in registers as
+// mma's B operand, ran 0.615-0.621 ms a launch exact and 0.465-0.467 ms at
+// three limbs, a third of the bound, where the mma.sync probe
+// (csrc/mxu_peak.cu) tops out at this shape; the wgmma probe reaches 80 %.
+// wgmma reads its B operand only from shared memory, its A from shared
+// memory or registers.
 //
-// What this version does about it: the probe's schedule, which the probe
-// measured at exactly this GEMM shape (its k1step case): a block owns 128
-// batch rows x 32 outputs x 4 limbs of one component; 8 warps of 64 rows x
-// (8 outputs x 4 limbs) each (WO = 1 octet of outputs a warp); a 3-stage
-// cp.async ring of 128-byte contraction slices of dec (XOR-swizzled for
-// ldmatrix, rows at or above B zero-filled) and key windows. A warp's four
-// n8 tiles are the four limbs of the same 8 outputs, so every thread holds
-// all four limb sums of its outputs and the epilogue, acc += sum_li
-// sums_li << 8*li in uint32, runs in registers. At three limbs the same
-// block (extprod_kernel<128, 3, 1>) is 96 columns: the A tile is re-read
-// from L2 once per 96 columns instead of 128, and the ldmatrix, barrier
-// and copy work of a stage is spread over 3/4 of the MMAs, so it runs at a
-// lower MMA rate than the exact instance.
-// The pallas3 path therefore runs extprod_kernel<256, 3, 2> where N >= 256:
-// a warp holds two octets of outputs (64 outputs, 192 columns a block, 96
-// int32 sums a thread), which halves the A traffic and doubles the MMAs
-// per ldmatrix; at 196 registers one block fits an SM, with no second
-// block to run while its warps wait at a stage's barrier, so the stage is
-// 256 contraction bytes, half as many barriers. On an H100 it ran at
-// 312.6 ms a rotation against <128, 3, 1>'s 369.1 at tfhepp_128bit, batch
-// 4096 (PERF.md), so cufhe_blind_rotate takes it wherever N >= 256 and
-// <128, 3, 1> only at N = 128.
-// Each (b, o, c) belongs to one block, so the in-place update has no race.
-// For N < 128 the stage is 32 bytes wide (one mma k-step); BK | N always.
-// The int32 sums of the tensor cores are exact while I*N*2^(dbits-1)*128
-// < 2^31 (2^24.6 at tfhepp_128bit); cufhe_blind_rotate refuses any set
-// where it is not.
-// wgmma, TMA, Karatsuba leaves and a persistent kernel that keeps acc on
-// chip across the n0 steps are later work.
+// What this version does about it: it computes the transposed product,
+// acc^T = T^T dec^T, on wgmma m64n64k32 s8:
+//  - M is the outputs (o, c), one m64 tile per consumer warpgroup and limb;
+//    N the batch rows b; K the contraction (r, t).
+//  - A is the key's negacyclic Toeplitz operator, T^T[(o,c), (r,t)] =
+//    ext_li[r,o][N + c - t], built in registers (wgmma's register A, K-major
+//    as .s8 requires). A warp's fragment of m64nNk32 is mma.m16n8k32's:
+//    register 2*h2 + hi of lane (g, q) holds row g (hi = 0) or g + 8 (hi =
+//    1) of the warp's 16, contraction bytes 16*h2 + 4q .. +3. Four
+//    consecutive contraction bytes of one output are four consecutive key
+//    bytes in reverse order, so each register is one __byte_perm of two
+//    aligned words of a key window in shared memory (the earlier kernel's
+//    trick): window bytes xa+3, xa+2, xa+1, xa with xa = 4m + sh, where sh
+//    = (g + 1) mod 4 and the word m depend on the lane only (the formula
+//    is at the consumer's code; tests/test_torch_extprod.py models it).
+//  - Row g + 8 of a warp's 16 is the output 32 further on (rows g: outputs
+//    c0 + 8*warp + g, rows g + 8: c0 + 32 + 8*warp + g), so within one key
+//    row the upper rows' registers at k-step kk are the lower rows' at kk-1:
+//    20 window loads a limb and stage instead of 32.
+//  - B is dec [B, I*N] int8 as rotdec_kernel writes it, already K-major: a
+//    producer warp brings [64 rows x 128 bytes] boxes by TMA (128-byte
+//    swizzle, rows at or past B and bytes past I*N filled with zeros), and
+//    each stage's key windows, one a limb and run of min(N, 128) outputs,
+//    by cp.async.bulk, into a ring of kStages slots under full and empty
+//    mbarriers.
+//  - A block owns 128 outputs x NL limbs x 64 batch rows: two consumer
+//    warpgroups of 64 outputs each, sharing the dec tile. A warpgroup
+//    builds a stage's A registers (4 k-steps x NL limbs), then issues its
+//    NL * 4 wgmma (one per limb and k-step, all k-steps on one B
+//    descriptor) as one group and waits for it while the other
+//    warpgroup's group runs. Every thread holds all NL limb sums of its
+//    (c, b) positions, so the epilogue acc += sum_li sums_li << 8*(li + 4
+//    - NL) runs in registers.
+//  - Where output tiles x batch tiles leave SMs idle (small batches), the
+//    contraction's stages are cut into gridDim.z ranges. Every block adds
+//    its partial to acc with red.global.add.u32, one range or several:
+//    adds mod 2^32 are exact in any order. ops/blind_rotate.py:
+//    extprod_plan chooses the split; the grid and the ranges follow from
+//    it here.
+//  - Shapes: a stage is 128 contraction bytes; for N < 128 it spans 128/N
+//    key rows, each with its own windows (SEG = min(N, 128) template
+//    argument). Outputs past (k+1)*N (TINY_K2: 96) get zero fragments and
+//    are not stored.
+// On an H100 (PERF.md) it runs 0.35 ms a launch exact and 0.27 ms at
+// three limbs, 60 % and 57 % of the bound. The same kernel with a plain
+// read-add-write of acc where the split is 1 ran 0.46 / 0.39 ms, likely
+// the loads' latency with the SM's one block idle behind them
+// (red.global.add does not wait for its result). Measured on the way
+// there, all with that read-add-write: a wgmma group per k-step instead
+// of per stage, 0.50 / 0.44 ms; two 32-output key windows per warpgroup
+// instead of one a run, 0.49 / 0.43; no window loads at all (a wrong
+// result, to time the rest), 0.40 / 0.36; m64n128 with the limbs split
+// over warpgroups (2 x 2, 3 x 1), 0.54 / 0.47; a second set of A
+// registers to keep a group in flight across stages, 0.53 / 0.38 with
+// ptxas serialising wgmma where N = 64.
+// The int32 sums are exact while I*N*2^(dbits-1)*128 < 2^31 (2^24.6 at
+// tfhepp_128bit); cufhe_blind_rotate refuses any set where it is not.
+// Karatsuba leaves, a persistent kernel that keeps acc on chip across the
+// n0 steps, and TMA multicast of the dec tile across a cluster are later
+// work.
 #include <climits>
 #include <cstddef>
 #include <cstdint>
 
+#include <cuda.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -137,49 +150,44 @@ constexpr int kRotThreads = 256;
 constexpr int kRotQuads = 4;
 constexpr int kRotMaxNbit = 15;                    // a row of 128 KB
 
-// extprod_kernel's tiling
-constexpr int kBM = 128;                           // batch rows per block
-constexpr int kWarpsM = 2;
-constexpr int kWarpsN = 4;                         // warps across outputs
-constexpr int kThreads = 32 * kWarpsM * kWarpsN;   // 256
-constexpr int kWM = kBM / kWarpsM;                 // 64 rows per warp
-constexpr int kMT = kWM / 16;                      // m16 tiles per warp
-constexpr int kStages = 3;                         // cp.async ring depth
+// extprod_kernel's tiling; ops/blind_rotate.py states kOutTile, kRowTile
+// and kStageK again (EXTPROD_OUT_TILE, EXTPROD_ROW_TILE,
+// EXTPROD_STAGE_BYTES) for extprod_plan's choice of the split.
+constexpr int kWgOut = 64;                         // outputs a warpgroup: M
+constexpr int kConsumers = 2;                      // consumer warpgroups
+constexpr int kOutTile = kConsumers * kWgOut;      // outputs (o, c) a block
+constexpr int kRowTile = 64;                       // batch rows a block: N
+constexpr int kStageK = 128;                       // contraction bytes a stage
+constexpr int kStages = 8;                         // mbarrier ring depth
+constexpr int kGroup = 32;                         // outputs of rows g (g+8)
+constexpr int kExtThreads = 128 * (kConsumers + 1);
+constexpr int kBTile = kRowTile * kStageK;         // dec bytes a stage
+constexpr int kAcc = kRowTile / 2;                 // int32 sums a thread, limb
 
-// The shape of extprod_kernel<BK, NL, WO>: contraction stages of BK bytes,
-// NL key limbs, WO octets of outputs per warp, so a block computes kBNc =
-// 32 * WO outputs c of one component, NL * kBNc mma columns. Shared memory
-// of one ring stage: the A tile (kBM rows of BK bytes), then one window of
-// BK + kBNc key bytes per limb, each followed by 16 bytes that are read (by
-// lanes whose run starts on a word boundary) but never used.
-template <int BK, int NL, int WO>
-struct Stage {
-  static constexpr int kBNc = 8 * WO * kWarpsN;    // outputs c per block
-  static constexpr int kChunks = BK / 16;          // 16-byte chunks per row
-  static constexpr int kA = kBM * BK;
-  static constexpr int kWin = BK + kBNc;           // window bytes per limb
-  static constexpr int kWinChunks = kWin / 16;
+// The shape of extprod_kernel<NL, SEG>: NL key limbs, SEG = min(N, 128)
+// contraction bytes of one key row r in a stage, and as many outputs in a
+// run (outputs of one component o that share a key window). Shared memory
+// of one ring slot: the dec tile (1024-byte aligned for the swizzle), then
+// the key windows, each kWin bytes (SEG outputs x SEG contraction bytes:
+// [N + c0 - t0 - SEG, N + c0 - t0 + SEG) of ext) and 16 more that are read
+// but never used, in the order (seg * kRuns + run) * NL + li.
+template <int NL, int SEG>
+struct Ext {
+  static constexpr int kSegs = kStageK / SEG;      // key rows a stage
+  static constexpr int kSegSteps = SEG / 32;       // k-steps a key row
+  static constexpr int kRuns = kOutTile / SEG;     // runs of outputs a block
+  static constexpr int kWin = 2 * SEG;
   static constexpr int kWinStride = kWin + 16;
-  static constexpr int kBytes = kA + NL * kWinStride;
-  static constexpr int kSmem = kStages * kBytes;
-  static_assert((kBM * kChunks) % kThreads == 0, "A tile copy");
-  static_assert(NL * kWinChunks <= kThreads, "window copy");
-  static_assert(BK % 32 == 0 && kBytes % 16 == 0, "stage layout");
+  static constexpr int kWins = kSegs * kRuns * NL;
+  static constexpr int kStageBytes =
+      (kBTile + kWins * kWinStride + 1023) / 1024 * 1024;
+  static constexpr int kRing = kStages * kStageBytes;
+  // ring, full and empty barriers, and room to align the ring to 1024 B
+  static constexpr int kSmem = kRing + 16 * kStages + 1024;
+  static_assert(SEG == 32 || SEG == 64 || SEG == 128, "key rows a stage");
   static_assert(NL >= 1 && NL <= kLimbs, "limbs");
+  static_assert(kSmem <= 232448, "shared memory of one block");
 };
-
-// Byte offset of 16-byte chunk c of row r in an A tile of BK-byte rows: the
-// chunk index is XORed with the row, so for BK = 128 the 8 rows one
-// ldmatrix phase reads fall on 8 different bank groups.
-template <int BK>
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  return static_cast<uint32_t>(
-      r * BK + ((c ^ (r & (BK / 16 - 1))) << 4));
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // 16-byte copy to shared memory; src_bytes = 0 fills the 16 bytes with zeros
 // and reads nothing.
@@ -217,7 +225,7 @@ rotdec_kernel(const uint32_t* __restrict__ acc,
   const int rows = kRotThreads >> tpr_log;
   const int row0 = blockIdx.x * rows;
   const int here = min(rows, nrows - row0);
-  const uint32_t sbase = smem_addr(srow);
+  const uint32_t sbase = smem_u32(srow);
   const uint32_t* src = acc + static_cast<size_t>(row0) * N;
   for (int c = threadIdx.x; c < (here << (nbit - 2)); c += kRotThreads)
     cp_async16(sbase + 16 * c, src + 4 * c, 16);
@@ -338,7 +346,8 @@ cudaError_t launch_rotdec(const RotdecPlan& plan, const uint32_t* acc,
 // aligned for cp.async and dec 4-byte aligned for its stores.
 bool args_ok(const void* acc, const void* dec, int B, int N, int nbit, int k,
              int l, int Bgbit, int nd, int dbits) {
-  return B > 0 && B <= 65535 * kBM && nbit >= 5 && nbit <= kRotMaxNbit &&
+  return B > 0 && B <= 65535 * kRowTile && nbit >= 5 &&
+         nbit <= kRotMaxNbit &&
          N == (1 << nbit) && k >= 1 && l >= 1 && Bgbit >= 1 &&
          Bgbit <= 16 && l * Bgbit <= 32 && nd >= 1 && nd <= 2 &&
          dbits >= 1 && dbits <= 8 &&
@@ -347,193 +356,273 @@ bool args_ok(const void* acc, const void* dec, int B, int N, int nbit, int k,
          reinterpret_cast<uintptr_t>(dec) % 4 == 0;
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+#define R8(d, i)                                                     \
+  "+r"(d[(i) + 0]), "+r"(d[(i) + 1]), "+r"(d[(i) + 2]),              \
+      "+r"(d[(i) + 3]), "+r"(d[(i) + 4]), "+r"(d[(i) + 5]),          \
+      "+r"(d[(i) + 6]), "+r"(d[(i) + 7])
+
+// d += A B over one 32-byte contraction slice: A, 64 outputs, from the
+// warpgroup's registers a; B, 64 batch rows, from the shared-memory
+// descriptor db.
+__device__ __forceinline__ void wgmma_rs(int (&d)[kAcc],
+                                        const uint32_t (&a)[4],
+                                        uint64_t db) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p;\n}\n"
+      : R8(d, 0), R8(d, 8), R8(d, 16), R8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-__device__ __forceinline__ void mma(int (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+#undef R8
+
+// Keep a stage's A registers alive and unmoved up to this point: the wgmma
+// that reads them runs asynchronously until a wait retires its group.
+template <int K, int L>
+__device__ __forceinline__ void frag_fence(uint32_t (&f)[K][L][4]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int l = 0; l < L; ++l)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        asm volatile("" : "+r"(f[k][l][i]) :: "memory");
 }
 
-// acc [B, kp1, N] += the external product of dec [B, I*N] with the key of
-// one step, bk_i [I, kp1, NL, 2N], whose limb li is worth 2^(8(li + 4 -
-// NL)): 4 limbs are the exact key, 3 the reduced-precision pallas3 key
-// (the lowest limb dropped, pallas_br.py:57-62), whose instance issues 3/4
-// of the exact instance's MMAs. Grid: (kp1 * N/kBNc column blocks,
-// ceil(B/kBM) row blocks); kThreads threads; Stage<BK, NL, WO>::kSmem
-// bytes.
-template <int BK, int NL, int WO>
-__global__ void __launch_bounds__(kThreads)
-extprod_kernel(uint32_t* __restrict__ acc, const int8_t* __restrict__ dec,
-               const int8_t* __restrict__ bk_i, int B, int N, int kp1,
-               int I) {
-  using St = Stage<BK, NL, WO>;
-  extern __shared__ __align__(128) uint8_t smem[];
+__device__ __forceinline__ void red_add(uint32_t* p, uint32_t v) {
+  asm volatile("red.global.add.u32 [%0], %1;\n" :: "l"(p), "r"(v)
+               : "memory");
+}
+
+// acc [B, kp1, N] += the external product of dec [B, I*N] (the tensor map
+// tma_dec) with the key of one step, bk_i [I, kp1, NL, 2N], whose limb li
+// is worth 2^(8(li + 4 - NL)). Block (x, y, z): outputs go = o*N + c in
+// [128x, 128x + 128), batch rows [64y, 64y + 64), and range z of the
+// gridDim.z ranges of the step's T = ceil(I*N / 128) stages, [zT/Z,
+// (z+1)T/Z). Threads 0-255 are the consumer warpgroups, 256-383 the
+// producer warpgroup, of which one warp issues the copies.
+template <int NL, int SEG>
+__global__ void __launch_bounds__(kExtThreads, 1)
+extprod_kernel(const __grid_constant__ CUtensorMap tma_dec,
+               uint32_t* __restrict__ acc, const int8_t* __restrict__ bk_i,
+               int B, int N, int kp1, int I) {
+  using E = Ext<NL, SEG>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint8_t* ring = smem_raw + (base - raw);
+  const uint32_t full0 = base + E::kRing;          // full barrier i: +8i
+  const uint32_t empty0 = full0 + 8 * kStages;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wm = (warp / kWarpsN) * kWM;
-  const int wn = warp % kWarpsN;        // outputs c0 + 8*(WO*wn + oo) + 0..7
-  const int cblocks = N / St::kBNc;
-  const int o = blockIdx.x / cblocks;
-  const int c0 = (blockIdx.x - o * cblocks) * St::kBNc;
-  const int b0 = blockIdx.y * kBM;
-  const size_t KB = static_cast<size_t>(I) * N;  // contraction bytes per row
-  const int per_r = N / BK;                      // stages per key row r
-  const int T = I * per_r;                       // stages of the launch
-  const uint32_t sbase = smem_addr(smem);
+  const int wg = tid / 128;
+  const int KB = I * N;                            // contraction bytes
+  const int T = (KB + kStageK - 1) / kStageK;
+  const int s0 = static_cast<int>(static_cast<long long>(blockIdx.z) * T /
+                                  gridDim.z);    // the block's stages s0..s1-1
+  const int s1 = static_cast<int>(
+      static_cast<long long>(blockIdx.z + 1) * T / gridDim.z);
+  const int go0 = blockIdx.x * kOutTile;
+  const int b0 = blockIdx.y * kRowTile;
+  // the block's 32-output groups that exist (group 2*warpgroup + hi, see
+  // the consumer) and its runs of SEG outputs that exist
+  const int groups = min(kOutTile / kGroup, (kp1 * N - go0) / kGroup);
+  const int runs = min(E::kRuns, (kp1 * N - go0) / SEG);
 
-  // Stage s covers contraction bytes s*BK .. s*BK+BK-1, that is key row
-  // r = s / per_r and t0 = (s % per_r) * BK.
-  auto load = [&](int s, int slot) {
-    const uint32_t sa = sbase + slot * St::kBytes;
-#pragma unroll
-    for (int q = 0; q < kBM * St::kChunks / kThreads; ++q) {
-      const int idx = tid + q * kThreads;
-      const int r = idx / St::kChunks, c = idx % St::kChunks;
-      const int b = b0 + r;
-      const int8_t* src = dec + static_cast<size_t>(b < B ? b : 0) * KB +
-                          static_cast<size_t>(s) * BK + c * 16;
-      cp_async16(sa + swz<BK>(r, c), src, b < B ? 16 : 0);
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(full0 + 8 * i, 1);
+      mbar_init(empty0 + 8 * i, 4 * kConsumers);   // one per consumer warp
     }
-    if (tid < NL * St::kWinChunks) {
-      const int li = tid / St::kWinChunks;
-      const int ch = tid - li * St::kWinChunks;
-      const int r = s / per_r;
-      const int t0 = (s - r * per_r) * BK;
-      const int8_t* gen =
-          bk_i + ((static_cast<size_t>(r) * kp1 + o) * NL + li) * 2 * N;
-      cp_async16(sa + St::kA + li * St::kWinStride + ch * 16,
-                 gen + (N + c0 - t0 - BK) + ch * 16, 16);
-    }
-  };
-
-  // B fragment of n8 tile (oo, li) at k-step kk: register h (contraction
-  // bytes 32*kk + 16*h + 4*q + e, e = 0..3) of column c = c0 + 8*ow + g,
-  // ow = WO*wn + oo, holds window bytes x = 8*ow + g + BK - 32*kk - 16*h -
-  // 4*q - e, i.e. bytes xa+3, xa+2, xa+1, xa of the window with xa = 4*m +
-  // sh: word m and the next, byte-permuted. sh and the word m at kk = h =
-  // oo = 0 depend on the lane only; the next octet is 2 words on.
-  const int g = lane >> 2, q = lane & 3;
-  const int sh = (g + 1) & 3;
-  const uint32_t sel = (sh + 3) | ((sh + 2) << 4) | ((sh + 1) << 8) |
-                       (sh << 12);
-  const int m0 = 2 * WO * wn + BK / 4 - q - 1 + ((g + 1) >> 2);
-
-  int sums[kMT][WO][NL][4];
-#pragma unroll
-  for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-    for (int oo = 0; oo < WO; ++oo)
-#pragma unroll
-      for (int li = 0; li < NL; ++li)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sums[mt][oo][li][e] = 0;
-
-  // Prologue: kStages-1 groups are always committed (some may be empty), so
-  // wait_group<kStages-2> at iteration t always means "stage t has landed".
-#pragma unroll
-  for (int i = 0; i < kStages - 1; ++i) {
-    if (i < T) load(i, i);
-    cp_async_commit();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  for (int t = 0; t < T; ++t) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();                   // stage t visible; slot of t-1 free
-    const int nxt = t + kStages - 1;
-    if (nxt < T) load(nxt, nxt % kStages);
-    cp_async_commit();
-
-    const int slot = t % kStages;
-    const uint32_t a_base = sbase + slot * St::kBytes;
-    const uint32_t* win = reinterpret_cast<const uint32_t*>(
-        smem + slot * St::kBytes + St::kA);
-#pragma unroll
-    for (int kk = 0; kk < BK / 32; ++kk) {       // 32-byte contraction steps
-      uint32_t af[kMT][4];
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) {
-        const int r = wm + mt * 16 + (lane & 15);
-        ldmatrix_x4(af[mt], a_base + swz<BK>(r, 2 * kk + (lane >> 4)));
+  if (wg == kConsumers) {
+    // ---- producer: the dec tile by TMA, the key windows by bulk copies ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid - 128 * kConsumers < 32) {
+      const int lane = tid & 31;
+      int slot = 0;
+      uint32_t parity = 1;                         // the ring starts empty
+      for (int s = s0; s < s1; ++s) {
+        const uint32_t sa = base + slot * E::kStageBytes;
+        const uint32_t full = full0 + 8 * slot;
+        // key rows of the stage inside the contraction
+        const int segs = min(E::kSegs, (KB - s * kStageK + SEG - 1) / SEG);
+        mbar_wait(empty0 + 8 * slot, parity);
+        if (lane == 0) {
+          mbar_arrive_tx(full, kBTile + segs * runs * NL * E::kWin);
+          tma_load(sa, &tma_dec, full, s * kStageK, b0);
+        }
+        __syncwarp();
+        for (int wi = lane; wi < E::kWins; wi += 32) {
+          const int li = wi % NL;
+          const int run = wi / NL % E::kRuns;
+          const int seg = wi / NL / E::kRuns;
+          if (seg >= segs || run >= runs) continue;
+          const int p = s * kStageK + seg * SEG;
+          const int r = p / N;
+          const int t0 = p - r * N;
+          const int go = go0 + SEG * run;
+          const int o = go / N;
+          const int c0 = go - o * N;
+          const int8_t* src =
+              bk_i + ((static_cast<size_t>(r) * kp1 + o) * NL + li) * 2 * N +
+              (N + c0 - t0 - SEG);
+          bulk_load(sa + kBTile + wi * E::kWinStride, src, E::kWin, full);
+        }
+        if (++slot == kStages) {
+          slot = 0;
+          parity ^= 1;
+        }
       }
+    }
+  } else {
+    // ---- consumer warpgroup wg: outputs go0 + 64 wg .. + 63, NL limbs ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int lane = tid & 31;
+    const int warp = (tid >> 5) & 3;
+    const int g = lane >> 2, q = lane & 3;
+    const bool lo_ok = 2 * wg < groups;           // outputs past (k+1)N
+    const bool hi_ok = 2 * wg + 1 < groups;       // have zero fragments
+    // Register 2*h2 + hi of lane (g, q) at k-step kq of a key row holds
+    // output u = 32*hi + 8*warp + g of the warpgroup's 64 and contraction
+    // bytes k = 32kq + 16h2 + 4q + e (e = 0..3) of the row's SEG: bytes
+    // x = u' - k + SEG of the window of u's run, u' = u's place in the run,
+    // i.e. bytes xa+3 .. xa with xa = 4m + sh, sh = (g + 1) mod 4 and m =
+    // at[hi] - 8kq - 4h2 (at[hi]: the word of h2 = kq = 0 in the window of
+    // limb 0 and the stage's first key row); __byte_perm of words m and
+    // m+1 with selector sel puts them in order.
+    const int sh = (g + 1) & 3;
+    const uint32_t sel = (sh + 3) | ((sh + 2) << 4) | ((sh + 1) << 8) |
+                         (sh << 12);
+    const int m0 = 2 * warp + SEG / 4 - q + ((g + 1) >> 2) - 1;
+    constexpr int kW = E::kWinStride / 4;          // words a window
+    int at[2];
 #pragma unroll
-      for (int oo = 0; oo < WO; ++oo) {
+    for (int hi = 0; hi < 2; ++hi) {
+      const int u0 = kWgOut * wg + kGroup * hi;    // in the block's 128
+      at[hi] = u0 / SEG * NL * kW + u0 % SEG / 4 + m0;
+    }
+    int sums[NL][kAcc];
+#pragma unroll
+    for (int li = 0; li < NL; ++li) {
+#pragma unroll
+      for (int e = 0; e < kAcc; ++e) sums[li][e] = 0;
+      reg_fence(sums[li]);
+    }
+    uint32_t frag[kStageK / 32][NL][4];
+    int slot = 0;
+    uint32_t parity = 0;
+    for (int s = s0; s < s1; ++s) {
+      mbar_wait(full0 + 8 * slot, parity);
+      const uint32_t* win = reinterpret_cast<const uint32_t*>(
+          ring + slot * E::kStageBytes + kBTile);
+      const uint64_t db = smem_desc(base + slot * E::kStageBytes);
+#pragma unroll
+      for (int kk = 0; kk < kStageK / 32; ++kk) {
+        const int seg = kk / E::kSegSteps;
+        const int kq = kk % E::kSegSteps;
 #pragma unroll
         for (int li = 0; li < NL; ++li) {
+          uint32_t (&f)[4] = frag[kk][li];
           const uint32_t* w =
-              win + li * (St::kWinStride / 4) + m0 + 2 * oo - 8 * kk;
-          const uint32_t b0f = __byte_perm(w[0], w[1], sel);
-          const uint32_t b1f = __byte_perm(w[-4], w[-3], sel);
-#pragma unroll
-          for (int mt = 0; mt < kMT; ++mt)
-            mma(sums[mt][oo][li], af[mt], b0f, b1f);
+              win + (seg * E::kRuns * NL + li) * kW - 8 * kq;
+          const uint32_t* wl = w + at[0];
+          f[0] = lo_ok ? __byte_perm(wl[0], wl[1], sel) : 0u;
+          f[2] = lo_ok ? __byte_perm(wl[-4], wl[-3], sel) : 0u;
+          if (kq > 0) {       // outputs c + 32 at kk are outputs c at kk-1
+            f[1] = frag[kk > 0 ? kk - 1 : 0][li][0];
+            f[3] = frag[kk > 0 ? kk - 1 : 0][li][2];
+          } else {
+            const uint32_t* wh = w + at[1];
+            f[1] = hi_ok ? __byte_perm(wh[0], wh[1], sel) : 0u;
+            f[3] = hi_ok ? __byte_perm(wh[-4], wh[-3], sel) : 0u;
+          }
         }
       }
+      // one group a stage: the fence, commit and wait are paid once for
+      // NL * 4 wgmma
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kStageK / 32; ++kk) {
+#pragma unroll
+        for (int li = 0; li < NL; ++li)
+          wgmma_rs(sums[li], frag[kk][li], db + 2 * kk);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      frag_fence(frag);
+      if (lane == 0) mbar_arrive(empty0 + 8 * slot);   // the slot is free
+      if (++slot == kStages) {
+        slot = 0;
+        parity ^= 1;
+      }
     }
-  }
-  cp_async_wait<0>();
+#pragma unroll
+    for (int li = 0; li < NL; ++li) reg_fence(sums[li]);
 
-  // C fragment e of tile (mt, oo, li): row g + 8*(e >> 1), column
-  // 2*q + (e & 1) of octet oo.
+    // sums[li][4j + 2hi + x]: output 32*hi + 8*warp + g of the
+    // warpgroup's 64, batch row b0 + 8j + 2q + x
 #pragma unroll
-  for (int mt = 0; mt < kMT; ++mt) {
+    for (int hi = 0; hi < 2; ++hi) {
+      if (!(hi ? hi_ok : lo_ok)) continue;
+      const int go = go0 + kWgOut * wg + kGroup * hi + 8 * warp + g;
+      const int o = go / N;
+      uint32_t* out = acc + static_cast<size_t>(o) * N + (go - o * N);
 #pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int b = b0 + wm + mt * 16 + g + 8 * hf;
-      if (b >= B) continue;
+      for (int j = 0; j < kAcc / 4; ++j) {
 #pragma unroll
-      for (int oo = 0; oo < WO; ++oo) {
-        uint32_t v0 = 0, v1 = 0;
+        for (int x = 0; x < 2; ++x) {
+          const int b = b0 + 8 * j + 2 * q + x;
+          if (b >= B) continue;
+          uint32_t v = 0;
 #pragma unroll
-        for (int li = 0; li < NL; ++li) {
-          const int shift = kLimbBits * (li + kLimbs - NL);
-          v0 += static_cast<uint32_t>(sums[mt][oo][li][2 * hf]) << shift;
-          v1 += static_cast<uint32_t>(sums[mt][oo][li][2 * hf + 1]) << shift;
+          for (int li = 0; li < NL; ++li)
+            v += static_cast<uint32_t>(sums[li][4 * j + 2 * hi + x])
+                 << (kLimbBits * (li + kLimbs - NL));
+          red_add(out + static_cast<size_t>(b) * kp1 * N, v);
         }
-        const int c = c0 + 8 * (WO * wn + oo) + 2 * q;
-        uint2* p = reinterpret_cast<uint2*>(
-            acc + (static_cast<size_t>(b) * kp1 + o) * N + c);
-        uint2 cur = *p;
-        cur.x += v0;
-        cur.y += v1;
-        *p = cur;
       }
     }
   }
 }
 
-// The n0 steps of one rotation through extprod_kernel<BK, NL, WO>.
-template <int BK, int NL, int WO>
+// The n0 steps of one rotation through extprod_kernel<NL, SEG>, its
+// contraction cut into `split` ranges.
+template <int NL, int SEG>
 cudaError_t rotate(uint32_t* acc, const int32_t* abar, const int8_t* key,
                    int8_t* dec, int B, int n0, int N, int nbit, int kp1,
                    int l, int Bgbit, int nd, int dbits, uint32_t off,
-                   cudaStream_t s) {
-  using St = Stage<BK, NL, WO>;
+                   int split, cudaStream_t s) {
+  using E = Ext<NL, SEG>;
   cudaError_t err = cudaFuncSetAttribute(
-      extprod_kernel<BK, NL, WO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      St::kSmem);
+      extprod_kernel<NL, SEG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      E::kSmem);
   if (err != cudaSuccess) return err;
   RotdecPlan plan;
   err = rotdec_plan(nbit, l, nd, &plan);
   if (err != cudaSuccess) return err;
   const int I = kp1 * l * nd;
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  CUtensorMap map;                     // dec is the same buffer every step
+  if (!encode_rows(fn, &map, dec, B, I * N, kRowTile))
+    return cudaErrorInvalidValue;
   const size_t key_step = static_cast<size_t>(I) * kp1 * NL * 2 * N;
-  const dim3 grid(kp1 * (N / St::kBNc), (B + kBM - 1) / kBM);
+  const dim3 grid((kp1 * N + kOutTile - 1) / kOutTile,
+                  (B + kRowTile - 1) / kRowTile, split);
   for (int i = 0; i < n0; ++i) {
     err = launch_rotdec(plan, acc, abar + static_cast<size_t>(i) * B, dec, B,
                         nbit, kp1, l, Bgbit, nd, dbits, off, s);
     if (err != cudaSuccess) return err;
-    extprod_kernel<BK, NL, WO><<<grid, kThreads, St::kSmem, s>>>(
-        acc, dec, key + i * key_step, B, N, kp1, I);
+    extprod_kernel<NL, SEG><<<grid, kExtThreads, E::kSmem, s>>>(
+        map, acc, key + i * key_step, B, N, kp1, I);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -542,31 +631,42 @@ cudaError_t rotate(uint32_t* acc, const int32_t* abar, const int8_t* key,
 
 using RotateFn = cudaError_t (*)(uint32_t*, const int32_t*, const int8_t*,
                                  int8_t*, int, int, int, int, int, int, int,
-                                 int, int, uint32_t, cudaStream_t);
+                                 int, int, uint32_t, int, cudaStream_t);
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
 
 }  // namespace
 
 // One blind rotation of B accumulators, in place. acc [B, k+1, N] and
 // abar [n0, B] are int32 (torus values as uint32 bits), bk_ext is
 // [n0, I, k+1, nlimbs, 2N] int8 with I = (k+1)*l*nd, dec is scratch of
-// B*I*N bytes. nlimbs is 4 (the exact key) or 3 (pallas3, N >= 128); the
-// product's instance follows from nlimbs and N. Enqueues 2*n0 kernels on
-// `stream` and returns the first launch error as a cudaError_t value (0 on
-// success); it does not wait.
+// B*I*N bytes (bk_ext and dec 16-byte aligned). nlimbs is 4 (the exact
+// key) or 3 (pallas3, N >= 128); the product's instance follows from
+// nlimbs and N. split, 1 <= split <= ceil(I*N / 128), is the number of
+// contraction ranges, ops/blind_rotate.py:extprod_plan's choice. Enqueues 2*n0 kernels on `stream` and returns the
+// first launch error as a cudaError_t value (0 on success); it does not
+// wait.
 // Another nlimbs, a three-limb key at N < 128, sets whose limb sums could
-// leave int32 (I*N*2^(dbits-1)*128 >= 2^31), N < 32, N > 2^kRotMaxNbit and
-// the other arguments args_ok refuses are refused with
+// leave int32 (I*N*2^(dbits-1)*128 >= 2^31), N < 32, N > 2^kRotMaxNbit,
+// another split and the other arguments args_ok refuses are refused with
 // cudaErrorInvalidValue.
 extern "C" int cufhe_blind_rotate(void* acc, const void* abar,
                                   const void* bk_ext, void* dec, int B,
                                   int n0, int N, int nbit, int k, int l,
                                   int Bgbit, int nd, int dbits, int nlimbs,
-                                  unsigned int off_const, void* stream) {
+                                  unsigned int off_const, int split,
+                                  void* stream) {
   if (n0 < 0 || !args_ok(acc, dec, B, N, nbit, k, l, Bgbit, nd, dbits))
     return static_cast<int>(cudaErrorInvalidValue);
   const int kp1 = k + 1;
   const long long I = static_cast<long long>(kp1) * l * nd;
   if (I * N * (1LL << (dbits - 1)) * 128 >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long stages = (I * N + kStageK - 1) / kStageK;
+  if (split < 1 || split > stages || split > 65535 || !aligned16(dec) ||
+      !aligned16(bk_ext))
     return static_cast<int>(cudaErrorInvalidValue);
   auto* acc_u = static_cast<uint32_t*>(acc);
   const auto* abar_i = static_cast<const int32_t*>(abar);
@@ -575,14 +675,12 @@ extern "C" int cufhe_blind_rotate(void* acc, const void* abar,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   RotateFn run = nullptr;
   if (nlimbs == 4)
-    run = N >= 128 ? rotate<128, 4, 1> : rotate<32, 4, 1>;
-  else if (nlimbs == 3 && N >= 256)
-    run = rotate<256, 3, 2>;
+    run = N >= 128 ? rotate<4, 128> : N == 64 ? rotate<4, 64> : rotate<4, 32>;
   else if (nlimbs == 3 && N >= 128)
-    run = rotate<128, 3, 1>;
+    run = rotate<3, 128>;
   if (run == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(run(acc_u, abar_i, key, dec_i8, B, n0, N, nbit,
-                              kp1, l, Bgbit, nd, dbits, off_const, s));
+                              kp1, l, Bgbit, nd, dbits, off_const, split, s));
 }
 
 // One step's rotate-and-decompose alone: dec [B, I, N] int8 from acc

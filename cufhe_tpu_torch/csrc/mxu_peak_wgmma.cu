@@ -56,6 +56,8 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 enum Variant { kPure = 0, kPlace = 1, kWrite = 2, kBf16 = 3 };
@@ -79,93 +81,10 @@ struct Cfg {
   static_assert(kSmemBytes <= 232448, "shared memory of one block");
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-// One box of a 2-D tensor map ({x, y} = {byte in the row, row}) into
-// shared memory; completion counts bytes on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int x, int y) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(x),
-         "r"(y)
-      : "memory");
-}
-
 __device__ __forceinline__ void st_shared16(uint32_t addr, uint4 v) {
   asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n"
                :: "r"(addr), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
                : "memory");
-}
-
-// wgmma's shared-memory descriptor of a K-major tile of 128-byte rows in
-// the 128-byte swizzle TMA writes: 8-row groups 1024 bytes apart (stride
-// offset 64 x 16 B), leading offset unused (1), layout SWIZZLE_128B (1 in
-// bits 62-63). Tiles start on 1024-byte boundaries, so the base offset is
-// 0, and the k-th 32-byte slice of every row is the descriptor plus 2k.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
-         (64ull << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keep the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma that owns the registers.
-template <int N>
-__device__ __forceinline__ void reg_fence(int (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
 #define R8(d, i)                                                     \
@@ -433,7 +352,7 @@ mxu_peak_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
       for (int kk = 0; kk < kBKBytes / 32; ++kk)
         wgmma(acc, da + 2 * kk, db + 2 * kk, (kk > 0 || !fresh) ? 1 : 0);
       wgmma_commit();
-      wgmma_wait_all();
+      wgmma_wait<0>();
       reg_fence(acc);
       if (lane == 0) mbar_arrive(empty0 + 8 * slot);
       fresh = false;
@@ -459,43 +378,6 @@ mxu_peak_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
     }
     if (V == kPlace) store_rows(upd, out, W, row0, n0, lane, add);
   }
-}
-
-using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
-// library needs no -lcuda at link time.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A 2-D byte tensor [rows, kb] read in boxes of box_rows x 128 bytes with
-// the 128-byte swizzle.
-bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, long long rows,
-            int kb, int box_rows) {
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(kb),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(kb)};
-  const cuuint32_t box[2] = {kBKBytes, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t estr[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr),
-            dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int V, int BN>
@@ -550,8 +432,8 @@ extern "C" int cufhe_mxu_peak_wgmma(int variant, int bn, const void* A,
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const int kb = static_cast<int>(Kb);
   CUtensorMap ta, tb;
-  if (!encode(fn, &ta, A, static_cast<long long>(S) * M, kb, kBM) ||
-      !encode(fn, &tb, Xt, static_cast<long long>(S) * W, kb, bn))
+  if (!encode_rows(fn, &ta, A, static_cast<long long>(S) * M, kb, kBM) ||
+      !encode_rows(fn, &tb, Xt, static_cast<long long>(S) * W, kb, bn))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;

@@ -10,7 +10,9 @@ Two versions of the same function live here:
   materialised negacyclic Toeplitz product per step, built from the key
   windows the kernel reads. Exact on the CPU and on CUDA.
 * blind_rotate_cuda, the hand-written CUDA kernels (csrc/blind_rotate.cu),
-  reading the key in the layout prepare_bk_ext builds.
+  reading the key in the layout prepare_bk_ext builds. The product kernel
+  runs on wgmma; extprod_plan chooses how many ranges its contraction is
+  cut into, and the C entry takes that split.
 
 Both take the key at four limbs (the exact path) or three (the reduced-
 precision `pallas3` path of the JAX package: the lowest of the four
@@ -40,6 +42,41 @@ KEY_LIMBS = (3, 4)
 #: the least N of a three-limb key: the JAX package's pallas3 kernel needs
 #: N % 128 == 0 (pallas_br.py:343, 816)
 PALLAS3_MIN_N = 128
+
+#: extprod_kernel's block tile (csrc/blind_rotate.cu: kOutTile, kRowTile,
+#: kStageK): outputs (o, c), batch rows, and contraction bytes a stage
+EXTPROD_OUT_TILE = 128
+EXTPROD_ROW_TILE = 64
+EXTPROD_STAGE_BYTES = 128
+#: streaming multiprocessors of an H100 SXM, the plan's default
+H100_SMS = 132
+#: a block's fixed cost (launch, barriers, the ring's first fill, the
+#: epilogue) in stages, as the plan weighs it against shorter ranges; a
+#: guess, not timed against other values (PERF.md)
+EXTPROD_BLOCK_OVERHEAD = 2
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def extprod_plan(B: int, N: int, kp1: int, I: int,
+                 sms: int = H100_SMS) -> int:
+    """The product kernel's split for B accumulators [B, kp1, N] and I
+    digit rows: the number of ranges its ceil(I*N / 128) contraction
+    stages are cut into (gridDim.z; the kernel takes the grid's output
+    and batch tiles from B, kp1 and N). 1 where output tiles x batch tiles
+    fill the `sms` SMs (one block an SM); otherwise at least `sms` blocks,
+    at the split of the least waves x (stages a range +
+    EXTPROD_BLOCK_OVERHEAD)."""
+    blocks = _cdiv(kp1 * N, EXTPROD_OUT_TILE) * _cdiv(B, EXTPROD_ROW_TILE)
+    stages = _cdiv(I * N, EXTPROD_STAGE_BYTES)
+    if blocks >= sms:
+        return 1
+    least = min(_cdiv(sms, blocks), stages)
+    return min(range(least, stages + 1), key=lambda z: (
+        _cdiv(blocks * z, sms) * (_cdiv(stages, z) + EXTPROD_BLOCK_OVERHEAD),
+        z))
 
 
 def check_key_limbs(nlimbs: int, params: GateParams) -> None:
@@ -100,6 +137,17 @@ def rotdec_ref(acc: torch.Tensor, abar_i: torch.Tensor,
     return torch.stack(parts, dim=2).reshape(B, rows * len(parts), N)
 
 
+def toeplitz_operator(bk_i: torch.Tensor) -> torch.Tensor:
+    """[L, I*N, (k+1)*N] int8: the negacyclic Toeplitz operator of one
+    step's key, T_li[(r, t), (o, c)] = ext_li[r, o][N + c - t], built from
+    the windows of bk_i [I, k+1, L, 2N] (one step of prepare_bk_ext)."""
+    I, kp1, L, N2 = bk_i.shape
+    N = N2 // 2
+    t = torch.arange(N, device=bk_i.device)
+    T = bk_i[..., N + t[None, :] - t[:, None]]        # [I, k+1, L, t, c]
+    return T.permute(2, 0, 3, 1, 4).reshape(L, I * N, kp1 * N)
+
+
 def ext_product_ref(dec: torch.Tensor, bk_i: torch.Tensor) -> torch.Tensor:
     """One step's external product, plain: [B, k+1, N] int32 =
     sum_li (sum_{r,t} dec[b, r, t] * ext_li[r, o][N + c - t]) << shift_li
@@ -109,9 +157,7 @@ def ext_product_ref(dec: torch.Tensor, bk_i: torch.Tensor) -> torch.Tensor:
     worth 2^(8(li + 4 - L))."""
     B, I, N = dec.shape
     _, kp1, L, _ = bk_i.shape
-    t = torch.arange(N, device=dec.device)
-    T = bk_i[..., N + t[None, :] - t[:, None]]        # [I, k+1, L, t, c]
-    T = T.permute(2, 0, 3, 1, 4).reshape(L, I * N, kp1 * N)
+    T = toeplitz_operator(bk_i)
     lhs = dec.reshape(B, I * N)
     out = torch.zeros((B, kp1 * N), dtype=torch.int32, device=dec.device)
     for li in range(L):
@@ -165,6 +211,11 @@ def _raise_on(lib, rc: int, entry: str) -> None:
         raise RuntimeError(f"{entry} failed: {msg} ({rc})")
 
 
+def _sms(device: torch.device) -> int:
+    """The SM count of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def blind_rotate_cuda(acc: torch.Tensor, abar: torch.Tensor,
                       bk_ext: torch.Tensor, params: GateParams
                       ) -> torch.Tensor:
@@ -176,7 +227,8 @@ def blind_rotate_cuda(acc: torch.Tensor, abar: torch.Tensor,
     `acc` is left unchanged and the result is returned. The C entry picks
     the product kernel's instance from the limb count and N. Enqueued on
     the current stream; raises if the kernels cannot be built or
-    launched.
+    launched. The product's contraction split is extprod_plan's for the
+    card's SM count.
     """
     from .._build import load
 
@@ -193,6 +245,7 @@ def blind_rotate_cuda(acc: torch.Tensor, abar: torch.Tensor,
                  "bk_ext": (bk_ext, torch.int8,
                             (n0, I, k + 1, nlimbs, 2 * N))})
     lib = load()
+    split = extprod_plan(B, N, k + 1, I, _sms(acc.device))
     out = acc.clone()
     dec = torch.empty((B, I, N), dtype=torch.int8, device=acc.device)
     with torch.cuda.device(acc.device):
@@ -200,7 +253,7 @@ def blind_rotate_cuda(acc: torch.Tensor, abar: torch.Tensor,
         rc = lib.cufhe_blind_rotate(
             out.data_ptr(), abar.data_ptr(), bk_ext.data_ptr(),
             dec.data_ptr(), B, n0, N, nbit, k, l, Bgbit, nd, dbits, nlimbs,
-            off, stream)
+            off, split, stream)
     _raise_on(lib, rc, "cufhe_blind_rotate")
     blind_rotate_cuda.launches += 1
     blind_rotate_cuda.by_nlimbs[nlimbs] += 1

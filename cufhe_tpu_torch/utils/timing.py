@@ -9,6 +9,32 @@ from contextlib import contextmanager
 import torch
 
 
+def block(x):
+    """Wait for the device work that produces x, a tensor or a nest of
+    them (lists, tuples, dict values, objects with a tensor `.data`):
+    synchronise every CUDA device they lie on. Returns x. The counterpart
+    of cufhe_tpu.utils.timing.block (jax.block_until_ready)."""
+    devices = set()
+
+    def visit(v):
+        if isinstance(v, torch.Tensor):
+            if v.device.type == "cuda":
+                devices.add(v.device)
+        elif isinstance(v, dict):
+            for item in v.values():
+                visit(item)
+        elif isinstance(v, (list, tuple)):
+            for item in v:
+                visit(item)
+        elif isinstance(getattr(v, "data", None), torch.Tensor):
+            visit(v.data)
+
+    visit(x)
+    for device in devices:
+        torch.cuda.synchronize(device)
+    return x
+
+
 def time_fn(fn, *args, iters: int = 5, warmup: int = 1, device="cuda",
             between=None, sleep_cycles: int = 0) -> float:
     """Median seconds per call of fn(*args). On a CUDA device each call is

@@ -65,7 +65,7 @@ def _device_keys(params, seed):
     return TK.prepare_keys(_keys(params, seed)[1], torch.device("cuda"))
 
 
-@pytest.mark.parametrize("rows", [1, 8, 129])            # ragged row tiles
+@pytest.mark.parametrize("rows", [1, 8, 63, 65, 129])    # ragged row tiles
 @pytest.mark.parametrize("params", [P.PALLAS_TINY, P.PALLAS_TINY_K2,
                                     P.PALLAS_BG10, P.TINY, P.TINY_K2,
                                     P.TFHEPP_128],
@@ -375,19 +375,59 @@ def _random_bk_ext(params, seed, device):
     return torch.from_numpy(BR.prepare_bk_ext(bk, params)).to(device)
 
 
+@pytest.mark.parametrize("rows", [1, 8, 63, 65, 129])
 @pytest.mark.parametrize("params", FULL_PRESETS, ids=lambda p: p.name)
-def test_cuda_kernel_matches_ref_full_presets(params, cuda):
-    """Every published preset through the kernel at 8 rows, k = 2 and
-    N = 512 (concrete), nd = 2 digit limbs (tfhepp_80bit, radix4_2048) and
-    N = 2048 (radix4_2048) included."""
+def test_cuda_kernel_matches_ref_full_presets(params, rows, cuda):
+    """Every published preset through the kernel, k = 2 and N = 512
+    (concrete), nd = 2 digit limbs (tfhepp_80bit, radix4_2048) and N = 2048
+    (radix4_2048) included; 1, 63 and 65 rows split the contraction."""
     bk_ext = _random_bk_ext(params, 98, cuda)
-    acc, abar = _random_inputs(params, 8, 99, cuda)
+    acc, abar = _random_inputs(params, rows, 99, cuda)
     before = BR.blind_rotate_cuda.launches
     got = BR.blind_rotate_cuda(acc, abar, bk_ext, params)
     want = BR.blind_rotate_ref(acc, abar, bk_ext, params)
     torch.cuda.synchronize()
     assert BR.blind_rotate_cuda.launches == before + 1
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("nlimbs", [4, 3])
+def test_cuda_kernel_matches_ref_main_shape(nlimbs, cuda):
+    """tfhepp_128bit at the main path's 4096 rows (one contraction
+    range), both key precisions."""
+    params = P.TFHEPP_128
+    bk_ext = _random_bk_ext(params, 140, cuda)[:, :, :, 4 - nlimbs:]
+    bk_ext = bk_ext.contiguous()
+    acc, abar = _random_inputs(params, 4096, 141, cuda)
+    lp = params.lvl1
+    assert BR.extprod_plan(4096, lp.n, lp.k + 1, bk_ext.shape[1]) == 1
+    got = BR.blind_rotate_cuda(acc, abar, bk_ext, params)
+    assert torch.equal(got, BR.blind_rotate_ref(acc, abar, bk_ext, params))
+
+
+@pytest.mark.parametrize("params", [P.PALLAS_TINY, P.TFHEPP_128],
+                         ids=lambda p: p.name)
+def test_cuda_kernel_splits_the_contraction_at_one_row(params, cuda):
+    """At B = 1 the plan cuts the contraction into ranges, and the sum of
+    the blocks' partials equals the plain product; a split of one range
+    on the same input agrees too."""
+    from cufhe_tpu_torch._build import load
+    lp = params.lvl1
+    bk_ext = _random_bk_ext(params, 142, cuda)
+    I = bk_ext.shape[1]
+    acc, abar = _random_inputs(params, 1, 143, cuda)
+    assert BR.extprod_plan(1, lp.n, lp.k + 1, I, BR._sms(acc.device)) > 1
+    want = BR.blind_rotate_ref(acc, abar, bk_ext, params)
+    assert torch.equal(BR.blind_rotate_cuda(acc, abar, bk_ext, params), want)
+    N, nbit, k, l, Bgbit, nd, dbits, off = BR._decomp_args(params)
+    out = acc.clone()
+    dec = torch.empty((1, I, N), dtype=torch.int8, device=cuda)
+    rc = load().cufhe_blind_rotate(
+        out.data_ptr(), abar.data_ptr(), bk_ext.data_ptr(), dec.data_ptr(),
+        1, params.n0, N, nbit, k, l, Bgbit, nd, dbits, 4, off, 1,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0 and torch.equal(out, want)
 
 
 @pytest.mark.parametrize("chunk", ["", "2"], ids=["one-step", "chunked"])
@@ -613,7 +653,7 @@ TINY3 = [P.PALLAS_TINY, P.PALLAS_TINY_K2, P.PALLAS_BG10, P.PALLAS_KAR,
          P.PALLAS_BG10_KAR]
 
 
-@pytest.mark.parametrize("rows", [1, 8, 129])
+@pytest.mark.parametrize("rows", [1, 8, 63, 65, 129])
 @pytest.mark.parametrize("params", TINY3, ids=lambda p: p.name)
 def test_cuda_pallas3_kernel_matches_ref(params, rows, cuda):
     """The three-limb instances equal the plain version at the tiny sets
@@ -626,25 +666,27 @@ def test_cuda_pallas3_kernel_matches_ref(params, rows, cuda):
         acc.cpu(), abar.cpu(), bk_ext3.cpu(), params))
 
 
+@pytest.mark.parametrize("rows", [1, 8, 63, 65, 129])
 @pytest.mark.parametrize("params", [P.TFHEPP_128, P.TFHEPP_80],
                          ids=lambda p: p.name)
-def test_cuda_pallas3_kernel_matches_ref_full_presets(params, cuda):
-    """At full width: tfhepp_128bit and tfhepp_80bit (nd = 2), 8 rows."""
+def test_cuda_pallas3_kernel_matches_ref_full_presets(params, rows, cuda):
+    """At full width: tfhepp_128bit and tfhepp_80bit (nd = 2)."""
     bk_ext3 = _random_bk_ext3(params, 132, cuda)
-    acc, abar = _random_inputs(params, 8, 133, cuda)
+    acc, abar = _random_inputs(params, rows, 133, cuda)
     got = _rotate3(acc, abar, bk_ext3, params)
     assert torch.equal(got, BR.blind_rotate_ref(acc, abar, bk_ext3, params))
 
 
 def test_cuda_refuses_other_limb_counts(cuda):
     """cufhe_blind_rotate takes nlimbs 3 or 4, three limbs only at
-    N >= 128; anything else is cudaErrorInvalidValue (1) and launches
-    nothing. The wrapper refuses a key of another limb count with
-    ValueError, and raises the C entry's refusal."""
+    N >= 128, and 1 <= split <= the contraction's stages; anything else
+    is cudaErrorInvalidValue (1) and launches nothing. The wrapper refuses
+    a key of another limb count with ValueError, and raises the C entry's
+    refusal."""
     from cufhe_tpu_torch._build import load
     lib = load()
 
-    def call(params, nlimbs, rows=2):
+    def call(params, nlimbs, rows=2, split=1):
         N, nbit, k, l, Bgbit, nd, dbits, off = BR._decomp_args(params)
         I = (k + 1) * l * nd
         acc, abar = _random_inputs(params, rows, 134, cuda)
@@ -654,13 +696,17 @@ def test_cuda_refuses_other_limb_counts(cuda):
         return lib.cufhe_blind_rotate(
             acc.data_ptr(), abar.data_ptr(), bk.data_ptr(), dec.data_ptr(),
             rows, params.n0, N, nbit, k, l, Bgbit, nd, dbits, nlimbs, off,
-            torch.cuda.current_stream().cuda_stream)
+            split, torch.cuda.current_stream().cuda_stream)
 
     for nlimbs in (0, 1, 2, 5, 8):
         assert call(P.PALLAS_TINY, nlimbs) == 1, nlimbs
     assert call(P.TINY, 3) == 1 and call(P.TINY, 4) == 0  # N = 64
     assert call(P.PALLAS_TINY, 3) == 0 and call(P.PALLAS_TINY, 4) == 0
     assert call(P.PALLAS_KAR, 3) == 0 and call(P.PALLAS_KAR, 4) == 0
+    # PALLAS_TINY: I*N = 512 contraction bytes, 4 stages of 128
+    assert call(P.PALLAS_TINY, 4, split=4) == 0
+    for split in (0, 5, -1):
+        assert call(P.PALLAS_TINY, 4, split=split) == 1, split
     torch.cuda.synchronize()
     bk2 = _random_bk_ext(P.PALLAS_TINY, 135, cuda)[:, :, :, 2:].contiguous()
     acc, abar = _random_inputs(P.PALLAS_TINY, 2, 136, cuda)
@@ -702,3 +748,16 @@ def test_cuda_pallas3_context_equals_the_cpu(params, cuda):
     assert decrypt_bits(outs["cuda"][0], sk).tolist() == [1, 1, 1, 0]
     assert decrypt_bits(outs["cuda"][1], sk).tolist() == [0, 1, 1, 0]
     assert decrypt_bits(outs["cuda"][2], sk).tolist() == [0, 0, 0, 1]
+
+
+def test_timing_block_waits_for_the_card(cuda):
+    """utils.timing.block synchronises the device of the CUDA tensors it
+    is given: work enqueued before it has finished when it returns."""
+    from cufhe_tpu_torch.utils.timing import block
+    x = torch.ones((4096, 4096), device=cuda)
+    torch.cuda._sleep(10_000_000)
+    done = torch.cuda.Event()
+    y = x @ x
+    done.record()
+    assert block([y])[0] is y
+    assert done.query()

@@ -1,0 +1,312 @@
+"""The wgmma product kernel's launch plan and register-A fragment map, on
+the CPU (the kernel itself runs only on the card: tests/test_torch_cuda.py).
+
+extprod_plan's split, through the kernel's grid and range formulas, must
+cover every (output tile, limb, batch tile, contraction stage) of a step
+exactly once and keep the card's SMs busy. The fragment map is a
+NumPy model of what csrc/blind_rotate.cu's extprod_kernel does: the
+producer's key windows in shared memory (their order, offsets and bytes),
+then each consumer lane's four A registers per limb and 32-byte k-step,
+from the lane -> window-word and __byte_perm selector formulas of the
+source (the upper rows' registers reused from the previous k-step inside a
+key row), placed where wgmma's m64nNk32 register-A layout puts them. The
+tiles it builds must be the transposed Toeplitz operator of the plain
+product (ops.blind_rotate.toeplitz_operator, which ext_product_ref
+contracts against), with zero rows past (k+1)*N.
+"""
+import pathlib
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from cufhe_tpu_torch import params as P
+from cufhe_tpu_torch.ops import blind_rotate as BR
+from cufhe_tpu_torch.ops.limbs import decomp_digit_limb_plan
+
+SOURCE = (pathlib.Path(__file__).resolve().parent.parent / "cufhe_tpu_torch"
+          / "csrc" / "blind_rotate.cu")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Intra-op threads off while this module runs: the suite runs several
+    worker processes on the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def cu_constants() -> dict:
+    """The integer constants csrc/blind_rotate.cu states as literals."""
+    return {m.group(1): int(m.group(2)) for m in re.finditer(
+        r"constexpr int (k\w+) = (\d+);", SOURCE.read_text())}
+
+
+C = cu_constants()
+WG_OUT, CONSUMERS, ROW_TILE = C["kWgOut"], C["kConsumers"], C["kRowTile"]
+STAGE_K, GROUP = C["kStageK"], C["kGroup"]
+
+
+def test_plan_tile_is_the_kernels():
+    assert BR.EXTPROD_OUT_TILE == CONSUMERS * WG_OUT == 128
+    assert BR.EXTPROD_ROW_TILE == ROW_TILE == 64
+    assert BR.EXTPROD_STAGE_BYTES == STAGE_K == 128
+    assert GROUP == 32 and WG_OUT == 2 * GROUP
+
+
+def _digit_rows(kp1: int) -> int:
+    """I at l = 3, nd = 1: the plan's contraction, I*N bytes."""
+    return kp1 * 3
+
+
+def kernel_stages(N: int, I: int) -> int:
+    """extprod_kernel's T: the step's contraction stages."""
+    return (I * N + STAGE_K - 1) // STAGE_K
+
+
+def kernel_tiles(B: int, N: int, kp1: int) -> tuple:
+    """The grid's x and y in rotate: output tiles, batch tiles."""
+    out_tile = CONSUMERS * WG_OUT
+    return ((kp1 * N + out_tile - 1) // out_tile,
+            (B + ROW_TILE - 1) // ROW_TILE)
+
+
+def kernel_ranges(stages: int, split: int) -> list:
+    """[s0, s1) of the stages block z sums: extprod_kernel's z*T/Z and
+    (z+1)*T/Z."""
+    return [(z * stages // split, (z + 1) * stages // split)
+            for z in range(split)]
+
+
+def test_grid_and_range_formulas_are_the_kernels():
+    """kernel_stages, kernel_tiles and kernel_ranges are the source's."""
+    src = re.sub(r"\s+", " ", SOURCE.read_text())
+    for text in (
+            "const int T = (KB + kStageK - 1) / kStageK;",
+            "static_cast<long long>(blockIdx.z) * T / gridDim.z",
+            "static_cast<long long>(blockIdx.z + 1) * T / gridDim.z",
+            "const dim3 grid((kp1 * N + kOutTile - 1) / kOutTile, "
+            "(B + kRowTile - 1) / kRowTile, split);",
+            "constexpr int kOutTile = kConsumers * kWgOut;"):
+        assert text in src, text
+
+
+@pytest.mark.parametrize("B", [1, 63, 65, 129, 4096])
+@pytest.mark.parametrize("nlimbs", [3, 4])
+@pytest.mark.parametrize("kp1", [2, 3])
+@pytest.mark.parametrize("N", [32, 64, 128, 512, 1024, 2048])
+def test_plan_covers_every_block_once(N, kp1, nlimbs, B):
+    I = _digit_rows(kp1)
+    split = BR.extprod_plan(B, N, kp1, I)
+    stages = kernel_stages(N, I)
+    assert 1 <= split <= stages
+    nx, ny = kernel_tiles(B, N, kp1)
+    out_tile = CONSUMERS * WG_OUT
+    assert (nx - 1) * out_tile < kp1 * N <= nx * out_tile
+    assert (ny - 1) * ROW_TILE < B <= ny * ROW_TILE
+    ranges = kernel_ranges(stages, split)
+    assert all(lo < hi for lo, hi in ranges)
+    seen = {}
+    for x in range(nx):
+        for y in range(ny):
+            for lo, hi in ranges:
+                for s in range(lo, hi):
+                    for li in range(nlimbs):   # a block sums every limb
+                        seen[x, y, li, s] = seen.get((x, y, li, s), 0) + 1
+    assert set(seen.values()) == {1}
+    assert len(seen) == nx * ny * nlimbs * stages
+    if nx * ny >= BR.H100_SMS:
+        assert split == 1        # a full card needs no split
+
+
+@pytest.mark.parametrize("B", [1, 4096])
+def test_plan_fills_the_card_at_tfhepp_128bit(B):
+    lp = P.TFHEPP_128.lvl1
+    I = (lp.k + 1) * lp.l * decomp_digit_limb_plan(lp.Bgbit)[0]
+    split = BR.extprod_plan(B, lp.n, lp.k + 1, I)
+    nx, ny = kernel_tiles(B, lp.n, lp.k + 1)
+    assert nx * ny * split >= BR.H100_SMS
+    assert (split > 1) == (B == 1)
+
+
+# -- the kernel's fragment map, as a model --------------------------------
+
+def byte_perm(x, y, sel):
+    """__byte_perm(x, y, sel): byte i of the result is byte sel[4i:4i+3]
+    of the eight bytes y:x (x the low word); elementwise on arrays."""
+    b = (y.astype(np.uint64) << np.uint64(32)) | x.astype(np.uint64)
+    out = np.zeros(np.shape(b), dtype=np.uint64)
+    for i in range(4):
+        nib = ((sel >> (4 * i)) & 7).astype(np.uint64)
+        out |= ((b >> (np.uint64(8) * nib)) & np.uint64(0xFF)) \
+            << np.uint64(8 * i)
+    return out.astype(np.uint32)
+
+
+def seg_bytes(N: int) -> int:
+    """extprod_kernel's SEG: contraction bytes of one key row a stage."""
+    return min(N, STAGE_K)
+
+
+def stage_windows(bk_i, N, kp1, I, x, s, fill):
+    """The producer's key windows of stage s in block x: {wi: the window's
+    kWinStride bytes}, garbage `fill` where the kernel copies nothing (the
+    16 trailing bytes, runs past (k+1)*N or key rows past I), and the
+    bytes the stage's barrier expects beside the dec tile."""
+    NL = bk_i.shape[2]
+    SEG = seg_bytes(N)
+    runs_all = CONSUMERS * WG_OUT // SEG
+    win, stride = 2 * SEG, 2 * SEG + 16
+    segs_all = STAGE_K // SEG
+    KB = I * N
+    segs = min(segs_all, -(-(KB - s * STAGE_K) // SEG))
+    go0 = x * CONSUMERS * WG_OUT
+    runs = min(runs_all, (kp1 * N - go0) // SEG)
+    out, copied = {}, 0
+    for wi in range(segs_all * runs_all * NL):
+        li, run, seg = wi % NL, wi // NL % runs_all, wi // NL // runs_all
+        buf = np.full(stride, fill, dtype=np.uint8)
+        if seg < segs and run < runs:
+            p = s * STAGE_K + seg * SEG
+            r, t0 = divmod(p, N)
+            o, c0 = divmod(go0 + SEG * run, N)
+            start = N + c0 - t0 - SEG
+            assert start % 16 == 0 and 0 <= start and start + win <= 2 * N
+            buf[:win] = bk_i[r, o, li, start:start + win].view(np.uint8)
+            copied += win
+        out[wi] = buf
+    assert copied == segs * runs * NL * win
+    return out, copied
+
+
+def a_tiles(bk_i, N, kp1, I, x, s, fill=0x5A):
+    """The A operand extprod_kernel's consumer warpgroups hand wgmma in
+    stage s of block x: [consumers, NL, k-steps, 64 rows, 32 bytes] int8,
+    from the registers each lane builds."""
+    NL = bk_i.shape[2]
+    SEG = seg_bytes(N)
+    runs_all = CONSUMERS * WG_OUT // SEG
+    kW = (2 * SEG + 16) // 4
+    windows, _ = stage_windows(bk_i, N, kp1, I, x, s, fill)
+    words = np.concatenate([windows[wi] for wi in sorted(windows)]
+                           ).view("<u4")
+    groups = min(CONSUMERS * WG_OUT // GROUP,
+                 (kp1 * N - x * CONSUMERS * WG_OUT) // GROUP)
+    warp = np.arange(4)[:, None]
+    lane = np.arange(32)[None, :]
+    g, q = lane >> 2, lane & 3
+    sh = (g + 1) & 3
+    sel = (sh + 3) | ((sh + 2) << 4) | ((sh + 1) << 8) | (sh << 12)
+    m0 = 2 * warp + SEG // 4 - q + ((g + 1) >> 2) - 1
+    tiles = np.zeros((CONSUMERS, NL, STAGE_K // 32, 64, 32), dtype=np.int8)
+    for wg in range(CONSUMERS):
+        lo_ok, hi_ok = 2 * wg < groups, 2 * wg + 1 < groups
+        # each row group's window: run u0 // SEG, from word u0 % SEG / 4
+        at = [(u0 // SEG) * NL * kW + u0 % SEG // 4 + m0
+              for u0 in (WG_OUT * wg, WG_OUT * wg + GROUP)]
+        before = None
+        for kk in range(STAGE_K // 32):
+            seg, kq = divmod(kk, SEG // 32)
+            f = {}
+            for li in range(NL):
+                w0 = (seg * runs_all * NL + li) * kW - 8 * kq
+                ml, mh = w0 + at[0], w0 + at[1]
+                zero = np.zeros(m0.shape, dtype=np.uint32)
+                f[li, 0] = (byte_perm(words[ml], words[ml + 1], sel)
+                            if lo_ok else zero)
+                f[li, 2] = (byte_perm(words[ml - 4], words[ml - 3], sel)
+                            if lo_ok else zero)
+                if kq > 0:
+                    f[li, 1], f[li, 3] = before[li, 0], before[li, 2]
+                else:
+                    f[li, 1] = (byte_perm(words[mh], words[mh + 1], sel)
+                                if hi_ok else zero)
+                    f[li, 3] = (byte_perm(words[mh - 4], words[mh - 3], sel)
+                                if hi_ok else zero)
+            before = f
+            # wgmma's register A (m64nNk32, 8-bit): register 2*h2 + hi of
+            # lane (g, q) in warp w holds row 16w + g + 8*hi, bytes
+            # 16*h2 + 4q .. +3
+            for li in range(NL):
+                for reg in range(4):
+                    h2, hi = divmod(reg, 2)
+                    vals = f[li, reg].view(np.uint8).reshape(4, 32, 4)
+                    for w in range(4):
+                        for ln in range(32):
+                            row = 16 * w + (ln >> 2) + 8 * hi
+                            k = 16 * h2 + 4 * (ln & 3)
+                            tiles[wg, li, kk, row, k:k + 4] = \
+                                vals[w, ln].view(np.int8)
+    return tiles
+
+
+def _random_bk_i(params, nlimbs, seed):
+    """One step of prepare_bk_ext on a random BK [1, (k+1)l, k+1, N]."""
+    lp = params.lvl1
+    bk = np.random.default_rng(seed).integers(
+        0, 1 << 32, (1, (lp.k + 1) * lp.l, lp.k + 1, lp.n),
+        dtype=np.uint64).astype(np.uint32)
+    return BR.prepare_bk_ext(bk, params, nlimbs)[0]
+
+
+@pytest.mark.parametrize("params,nlimbs,blocks", [
+    (P.TINY_K2, 4, None),          # N = 32: a stage is 4 key rows, 96
+    (P.TINY, 4, None),             # outputs (rows 96-127 masked); N = 64
+    (P.PALLAS_TINY, 4, None),
+    (P.PALLAS_TINY, 3, None),
+    (P.PALLAS_TINY_K2, 3, None),   # k = 2: 384 outputs, 3 column tiles
+    (P.PALLAS_KAR, 4, ((1, 3), (3, 0))),
+    (P.TFHEPP_128, 4, ((0, 7), (15, 47))),
+    (P.TFHEPP_128, 3, ((9, 0), (15, 8))),
+], ids=lambda v: getattr(v, "name", str(v)))
+def test_fragment_model_rebuilds_the_toeplitz_operator(params, nlimbs,
+                                                      blocks):
+    lp = params.lvl1
+    N, kp1 = lp.n, lp.k + 1
+    bk_i = _random_bk_i(params, nlimbs, 61)
+    I = bk_i.shape[0]
+    T = BR.toeplitz_operator(torch.from_numpy(bk_i)).numpy()
+    if blocks is None:
+        blocks = [(x, s) for x in range(kernel_tiles(1, N, kp1)[0])
+                  for s in range(kernel_stages(N, I))]
+    outs, KB = kp1 * N, I * N
+    for x, s in blocks:
+        tiles = a_tiles(bk_i, N, kp1, I, x, s)
+        for wg in range(CONSUMERS):
+            for kk in range(STAGE_K // 32):
+                p0 = s * STAGE_K + 32 * kk
+                cols = min(32, max(0, KB - p0))   # B is zero past I*N
+                for row in range(64):
+                    w, rem = divmod(row, 16)
+                    hi, g = divmod(rem, 8)
+                    go = (x * CONSUMERS * WG_OUT + WG_OUT * wg + GROUP * hi
+                          + 8 * w + g)
+                    got = tiles[wg, :, kk, row, :cols]
+                    if go >= outs:
+                        assert not got.any(), (x, s, wg, kk, row)
+                        continue
+                    want = T[:, p0:p0 + cols, go]
+                    assert np.array_equal(got, want), (x, s, wg, kk, row)
+
+
+def test_fragment_model_reads_inside_each_window():
+    """The words a lane reads, m-4 .. m+1 at every k-step of a key row,
+    lie inside its window's kWinStride bytes, and the lanes together
+    read from its first byte."""
+    for N in (32, 64, 128, 1024):
+        SEG = seg_bytes(N)
+        stride = 2 * SEG + 16
+        lows, highs = [], []
+        for u0 in range(0, CONSUMERS * WG_OUT, GROUP):
+            for warp in range(4):
+                for lane in range(32):
+                    g, q = lane >> 2, lane & 3
+                    m0 = 2 * warp + SEG // 4 - q + ((g + 1) >> 2) - 1
+                    for kq in range(SEG // 32):
+                        m = u0 % SEG // 4 + m0 - 8 * kq
+                        lows.append(4 * (m - 4))
+                        highs.append(4 * (m + 2) - 1)
+        assert min(lows) == 0 and max(highs) < stride

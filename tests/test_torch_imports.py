@@ -89,3 +89,30 @@ def test_chip_smoke_fails_without_cuda(alone, tmp_path):
         except ValueError:
             continue
         assert "ok" not in rec and "kernels" not in rec
+
+
+def test_version_is_the_jax_packages():
+    """F12: the port names its version as the JAX package does."""
+    import cufhe_tpu
+    import cufhe_tpu_torch
+    assert cufhe_tpu_torch.__version__ == cufhe_tpu.__version__ == "0.1.0"
+
+
+def test_timing_block_returns_its_input(monkeypatch):
+    """F12: utils.timing.block, the counterpart of cufhe_tpu's, returns
+    what it is given, tensors nested in lists, tuples, dicts and Ctxt
+    holders included, and synchronises no device for CPU tensors."""
+    import cufhe_tpu.utils.timing as JT
+    from cufhe_tpu_torch import Ctxt
+    from cufhe_tpu_torch.utils import timing as TT
+
+    def no_sync(*args):
+        raise AssertionError("a CPU tensor needs no synchronise")
+
+    monkeypatch.setattr(torch.cuda, "synchronize", no_sync)
+    x = torch.arange(4, dtype=torch.int32)
+    tree = {"a": [x, (x + 1,)], "b": Ctxt(x.reshape(2, 2), 0)}
+    assert TT.block(x) is x
+    assert TT.block(tree) is tree
+    assert TT.block(None) is None
+    assert hasattr(JT, "block") and callable(TT.block)

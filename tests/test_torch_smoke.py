@@ -151,6 +151,41 @@ def test_sass_mma_counts_per_instance():
     assert smoke.sass_mma_counts("") == {}
 
 
+_SASS_WGMMA = """\
+	code for sm_90a
+		Function : _ZN48_GLOBAL__N__eb88de2c_15_blind_rotate_cu_1b2cd1d314extprod_kernelILi3ELi128EEEv14CUtensorMap_stPjPKaiiii
+        /*0a10*/                   IGMMA.64x64x32.S8.S8 R24, R100, gdesc[UR4], R24, gsb0 ;
+        /*0a20*/                   PRMT R5, R4, 0x123, R6 ;
+        /*0a30*/                   IGMMA.64x64x32.S8.S8 R56, R104, gdesc[UR4], R56, gsb0 ;
+		Function : _ZN48_GLOBAL__N__eb88de2c_15_blind_rotate_cu_1b2cd1d314extprod_kernelILi4ELi128EEEv14CUtensorMap_stPjPKaiiii
+        /*0a10*/                   IGMMA.64x64x32.S8.S8 R24, R100, gdesc[UR4], R24, gsb0 ;
+        /*0a20*/                   IMMA.16832.S8.S8 R24, R100.ROW, R8.COL, R24 ;
+"""
+
+
+def test_sass_mma_counts_of_warpgroup_mma():
+    """Phase 20 counts IGMMA (wgmma s8) and IMMA (mma.sync) apart, by
+    the wgmma instances' template arguments <NL, SEG>."""
+    assert smoke.sass_mma_counts(_SASS_WGMMA, "IGMMA") == {
+        "extprod_kernel<3, 128>": 2, "extprod_kernel<4, 128>": 1}
+    assert smoke.sass_mma_counts(_SASS_WGMMA) == {
+        "extprod_kernel<3, 128>": 0, "extprod_kernel<4, 128>": 1}
+    assert smoke.sass_mma_counts(_SASS, "IGMMA") == {
+        "extprod_kernel<128, 3, 1>": 0, "rotdec_kernel<3, 1>": 0,
+        "extprod_kernel<128, 4, 1>": 0}
+
+
+def test_ptxas_warnings_finds_serialised_wgmma():
+    """Phase 2 fails where ptxas serialised wgmma, a note it prints as
+    info."""
+    line = ("ptxas info    : (C7511) Potential Performance Loss: "
+            "wgmma.mma_async instructions are serialized due to "
+            "insufficient register resources for the wgmma pipeline in the "
+            "function '_ZN48_GLOBAL__N__eb88de2c_15_blind_rotate_cu_1b2cd1d3"
+            "14extprod_kernelILi4ELi64EEEv14CUtensorMap_stPjPKaiiii'")
+    assert smoke.ptxas_warnings(_LOG + line + "\n") == [line]
+
+
 def test_pallas3_sets_are_presets_with_n_128_or_more():
     """Phase 20's sets exist, take the three-limb key (N >= 128), and the
     full-width ones include the main path's batch."""
