@@ -311,16 +311,17 @@ def timed(what: str, rotations: int, fn):
     read just after, on the host clock to a synchronise; raises unless
     the kernel was launched `rotations` times. Returns (out, seconds)."""
     import torch
-    from cufhe_tpu_torch.ops import blind_rotate as BR
+    from cufhe_tpu_torch.utils.spans import counts
     torch.cuda.synchronize()
-    BR.blind_rotate_cuda.launches = 0
+    before = counts()["blind_rotate"]
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    if BR.blind_rotate_cuda.launches != rotations:
-        raise AssertionError(f"{what}: {BR.blind_rotate_cuda.launches} "
-                             f"kernel launches, want {rotations}")
+    launched = counts()["blind_rotate"] - before
+    if launched != rotations:
+        raise AssertionError(f"{what}: {launched} kernel launches, want "
+                             f"{rotations}")
     return out, dt
 
 
@@ -455,8 +456,8 @@ def phase_streams(ctx, sk, tag: str) -> None:
     import numpy as np
     import torch
     import cufhe_tpu_torch as T
-    from cufhe_tpu_torch.ops import blind_rotate as BR
     from cufhe_tpu_torch.runtime import Stream, synchronize
+    from cufhe_tpu_torch.utils.spans import counts
 
     rng = np.random.default_rng(16)
     bits = [rng.integers(0, 2, STREAM_BATCH) for _ in range(3)]
@@ -475,7 +476,7 @@ def phase_streams(ctx, sk, tag: str) -> None:
 
     gates = 3 * STREAM_DEPTH
     torch.cuda.synchronize()
-    BR.blind_rotate_cuda.launches = 0
+    before = counts()["blind_rotate"]
     t0 = time.perf_counter()
     streamed = chains(s1, s2)
     polls = 0
@@ -485,7 +486,7 @@ def phase_streams(ctx, sk, tag: str) -> None:
         if time.perf_counter() - t0 > 120:
             raise AssertionError("Stream.query() never turned true")
     dt = time.perf_counter() - t0
-    launched = BR.blind_rotate_cuda.launches
+    launched = counts()["blind_rotate"] - before
     if launched != gates:
         raise AssertionError(f"stream chains: {launched} kernel launches, "
                              f"want {gates}")
@@ -754,9 +755,9 @@ def phase_ntt(ctx, sk, ek, p5, tag: str) -> int:
     import cufhe_tpu_torch as T
     from cufhe_tpu_torch import golden as G
     from cufhe_tpu_torch.benchmarks.noise import centered_phases
-    from cufhe_tpu_torch.ops import blind_rotate as BR
     from cufhe_tpu_torch.ops import bootstrap as B
     from cufhe_tpu_torch.torus import from_u32, to_u32
+    from cufhe_tpu_torch.utils.spans import counts
 
     nand = G.GATE_CONSTANTS["nand"]
     launched = 0
@@ -765,8 +766,9 @@ def phase_ntt(ctx, sk, ek, p5, tag: str) -> int:
         """timed(what, 0, fn): no K1 launch allowed; the count it read is
         kept."""
         nonlocal launched
+        before = counts()["blind_rotate"]
         out = timed(what, 0, fn)
-        launched += BR.blind_rotate_cuda.launches
+        launched += counts()["blind_rotate"] - before
         return out
     bits0, bits1 = [0, 1, 0, 1, 1, 0, 1, 1], [0, 0, 1, 1, 1, 1, 0, 1]
     for i, params in enumerate((T.TINY, T.TINY_K2, T.PALLAS_BG10)):
@@ -957,10 +959,10 @@ def phase_surface(ctx, sk, ek, pool, info: dict, tag: str) -> int:
     from cufhe_tpu_torch.benchmarks import golden_check as GC
     from cufhe_tpu_torch.benchmarks import phase_breakdown as PB
     from cufhe_tpu_torch.benchmarks import suite as SU
-    from cufhe_tpu_torch.ops import blind_rotate as BR
+    from cufhe_tpu_torch.utils.spans import counts
 
     torch.cuda.synchronize()
-    BR.blind_rotate_cuda.launches = 0
+    before = counts()["blind_rotate"]
     t0 = time.perf_counter()
     mism, total = GC.golden_diff(ctx, sk, ek, np.random.default_rng(23),
                                  nb=SURFACE_SAMPLES, pool=pool)
@@ -1002,7 +1004,7 @@ def phase_surface(ctx, sk, ek, pool, info: dict, tag: str) -> int:
         log(f"example {script} {' '.join(args)}: {expect!r} "
             f"({time.perf_counter() - t0:.1f} s)")
     torch.cuda.synchronize()
-    launches = BR.blind_rotate_cuda.launches
+    launches = counts()["blind_rotate"] - before
     if launches == 0:
         raise AssertionError("phase 19 launched no blind rotation")
     log(f"phase 19: {launches} kernel launches")
@@ -1302,7 +1304,8 @@ def phase_full_width(ctx, sk, ek, pool, tag: str) -> None:
 def profile_kernels(fn):
     """fn() under torch.profiler: ({kernel name: [device ms, launches]},
     device busy ms (the union of the kernels' spans), host ms to a
-    synchronise)."""
+    synchronise). The device-side copies of the program's cufhe.* spans
+    are no kernels and are left out."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1315,7 +1318,8 @@ def profile_kernels(fn):
         wall = (time.perf_counter() - t0) * 1e3
     per, spans = {}, []
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and \
+                not e.name.startswith("cufhe."):
             row = per.setdefault(e.name, [0.0, 0])
             row[0] += e.device_time_total / 1e3
             row[1] += 1
@@ -1448,6 +1452,7 @@ def phase_pallas3(ek, sk, p5, tag: str) -> dict:
     from cufhe_tpu_torch.ops import blind_rotate as BR
     from cufhe_tpu_torch.ops.keyswitch import key_switch
     from cufhe_tpu_torch.ops.poly import sample_extract_for_ks
+    from cufhe_tpu_torch.utils.spans import counts
 
     max_err, plain_ms = 0, None
     for name, rows_list in PALLAS3_SETS:
@@ -1509,12 +1514,12 @@ def phase_pallas3(ek, sk, p5, tag: str) -> dict:
         raise AssertionError("a pallas3 context holds a four-limb key")
     key_mb = ctx3.keys.bk_ext.numel() / 1e6
     torch.cuda.synchronize()
-    BR.blind_rotate_cuda.launches = 0
-    BR.blind_rotate_cuda.by_nlimbs.update(dict.fromkeys(BR.KEY_LIMBS, 0))
+    before = counts()
     first = ctx3.nand(a, b)
     out, times = time_nand_chain(ctx3, first, b, ITERS, REPS)
     gates = 1 + ITERS * REPS
-    launches = dict(BR.blind_rotate_cuda.by_nlimbs)
+    launched = counts() - before
+    launches = {nl: launched[f"blind_rotate.limbs{nl}"] for nl in (3, 4)}
     errors = int(np.sum(T.decrypt_bits(out, sk)
                         != expected_nand_chain(bits0, bits1, gates)))
     rate = BATCH / statistics.median(times)
@@ -1596,6 +1601,7 @@ def main() -> int:
     from cufhe_tpu_torch.ops import blind_rotate as BR
     from cufhe_tpu_torch.ops.keys import prepare_keys
     from cufhe_tpu_torch.torus import to_u32
+    from cufhe_tpu_torch.utils.spans import counts
 
     dev = torch.device("cuda")
     info = card()
@@ -1639,24 +1645,24 @@ def main() -> int:
         keys = prepare_keys(ek, dev)
         for rows in (1, 8, 65, 129):
             acc, abar = random_rotation_inputs(params, rows, 300 + i, dev)
-            before = BR.blind_rotate_cuda.launches
+            before = counts()["blind_rotate"]
             got = BR.blind_rotate_cuda(acc, abar, keys.bk_ext, params)
             want = BR.blind_rotate_ref(acc, abar, keys.bk_ext, params)
             torch.cuda.synchronize()
             err = u32_max_abs_err(got, want)
-            launched = BR.blind_rotate_cuda.launches - before
+            launched = counts()["blind_rotate"] - before
             log(f"kernel vs plain {params.name}, {rows} rows: max_abs_err "
                 f"{err} (launches {launched})")
             if err != 0 or launched != 1:
                 raise AssertionError(f"kernel disagrees at {params.name}")
             max_err = max(max_err, err)
             acc, abar_i = RD.random_inputs(params, rows, 500 + i, dev)
-            before = BR.rotdec_cuda.launches
+            before = counts()["rotdec"]
             got = BR.rotdec_cuda(acc, abar_i, params)
             want = BR.rotdec_ref(acc, abar_i, params)
             torch.cuda.synchronize()
             err = int((got.int() - want.int()).abs().max())
-            launched = BR.rotdec_cuda.launches - before
+            launched = counts()["rotdec"] - before
             log(f"rotdec vs plain {params.name}, {rows} rows: max_abs_err "
                 f"{err} (launches {launched})")
             if err != 0 or launched != 1:
@@ -1688,15 +1694,14 @@ def main() -> int:
     rng = np.random.default_rng(8)
     bits0 = rng.integers(0, 2, BATCH)
     bits1 = rng.integers(0, 2, BATCH)
-    BR.blind_rotate_cuda.launches = 0
-    BR.rotdec_cuda.launches = 0
+    before = counts()
     a = T.encrypt_bits(bits0, sk, rng)  # on the card by default
     b = T.encrypt_bits(bits1, sk, rng)
     first = ctx.nand(a, b)
     out, times = time_nand_chain(ctx, first, b, ITERS, REPS)
     bits = T.decrypt_bits(out, sk)
-    launches = BR.blind_rotate_cuda.launches
-    rotdec_launches = BR.rotdec_cuda.launches
+    launched = counts() - before
+    launches, rotdec_launches = launched["blind_rotate"], launched["rotdec"]
     gates = 1 + ITERS * REPS
     errors = int(np.sum(bits != expected_nand_chain(bits0, bits1, gates)))
     dt = statistics.median(times)

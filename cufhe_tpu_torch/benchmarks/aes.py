@@ -33,15 +33,15 @@ def run_circuit(ctx, sched, cts) -> dict:
     """run_schedule timed on the host clock to a synchronise, with the
     blind-rotation launches it made against the plan and the peak device
     memory. Returns the outputs and the numbers."""
-    from ..ops import blind_rotate as BR
     from ..runtime.executor import (plan_rotations, precompile_schedule,
                                     run_schedule, schedule_steps)
+    from ..utils.spans import counts
     batch = cts[0].batch
     shapes = precompile_schedule(ctx, sched, batch)
     plans = schedule_steps(ctx, sched, batch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    BR.blind_rotate_cuda.launches = 0
+    before = counts()["blind_rotate"]
     t0 = time.perf_counter()
     outs = run_schedule(ctx, sched, cts)
     torch.cuda.synchronize()
@@ -51,7 +51,7 @@ def run_circuit(ctx, sched, cts) -> dict:
         "gates": sched.num_gates, "levels": sched.num_levels,
         "steps": sum(len(p) for p in plans), "step_shapes": shapes,
         "planned_rotations": plan_rotations(plans),
-        "rotation_launches": BR.blind_rotate_cuda.launches,
+        "rotation_launches": counts()["blind_rotate"] - before,
         "seconds": dt, "bootstraps": boots,
         "bootstraps_per_sec": boots / dt,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}

@@ -35,13 +35,14 @@ import torch
 def timed(fn):
     """(result, seconds, kernel launches) of fn() between two
     synchronises."""
-    from ..ops import blind_rotate as BR
+    from ..utils.spans import counts
     torch.cuda.synchronize()
-    BR.blind_rotate_cuda.launches = 0
+    before = counts()["blind_rotate"]
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
-    return out, time.perf_counter() - t0, BR.blind_rotate_cuda.launches
+    return (out, time.perf_counter() - t0,
+            counts()["blind_rotate"] - before)
 
 
 def digit_noise(x, want, sk, codec):

@@ -33,8 +33,8 @@ def run(ctx, sk, streams: int, chain: int, lanes: int, fused: bool = False,
     ciphertexts on ctx, one Stream per lane; timed on the host clock from
     the first enqueue to the last synchronise."""
     from .. import Ctxt, decrypt_bits, encrypt_bits
-    from ..ops import blind_rotate as BR
     from ..runtime import Stream, stream_query, synchronize
+    from ..utils.spans import counts
 
     if streams % lanes:
         raise ValueError("--streams must divide by --lanes")
@@ -52,7 +52,7 @@ def run(ctx, sk, streams: int, chain: int, lanes: int, fused: bool = False,
     ctx.nand(lane_out[0], lane_oth[0])        # warm-up: builds the kernel
     synchronize()
     sts = [Stream(ctx.device) for _ in range(lanes)]
-    BR.blind_rotate_cuda.launches = 0
+    before = counts()["blind_rotate"]
     polls = 0
     t0 = time.perf_counter()
     if fused:
@@ -70,7 +70,7 @@ def run(ctx, sk, streams: int, chain: int, lanes: int, fused: bool = False,
                                         stream=sts[ln])
     synchronize(*sts)
     dt = time.perf_counter() - t0
-    launches = BR.blind_rotate_cuda.launches
+    launches = counts()["blind_rotate"] - before
 
     want = bits.copy()
     for nm in names:

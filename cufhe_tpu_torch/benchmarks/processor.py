@@ -55,20 +55,20 @@ def run(ctx, sk, sched, progs, cycles: int, scan: bool, seed: int = 5):
     synchronise, launches counted), decrypt and check every lane. Returns
     (final state Ctxts, record)."""
     from ..models import processor as TOY
-    from ..ops import blind_rotate as BR
     from ..runtime.executor import plan_rotations, schedule_steps
+    from ..utils.spans import counts
     batch = len(progs)
     inputs = TOY.encrypt_state(progs, sk, np.random.default_rng(seed),
                                device=ctx.device)
     planned = plan_rotations(schedule_steps(ctx, sched, batch)) * cycles
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    BR.blind_rotate_cuda.launches = 0
+    before = counts()["blind_rotate"]
     t0 = time.perf_counter()
     state = TOY.run_cycles(ctx, sched, inputs, cycles, scan=scan)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = BR.blind_rotate_cuda.launches
+    launches = counts()["blind_rotate"] - before
     acc, pc = TOY.decrypt_state(state, sk)
     errors = sum((int(acc[i]), int(pc[i])) != TOY.interpret(p, cycles)
                  for i, p in enumerate(progs))

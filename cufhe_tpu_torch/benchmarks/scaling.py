@@ -81,8 +81,8 @@ def card_sharding_overhead() -> dict:
     within this call."""
     from .. import Context, decrypt_bits, encrypt_bits
     from ..bench import expected_nand_chain
-    from ..ops import blind_rotate as BR
     from ..parallel import data_mesh
+    from ..utils.spans import counts
     from ._common import device_record, load_or_make_bench_keys
 
     sk, ek = load_or_make_bench_keys("tfhepp_128bit")
@@ -100,13 +100,13 @@ def card_sharding_overhead() -> dict:
     for _ in range(ROUNDS):
         for name in order:
             torch.cuda.synchronize()
-            BR.blind_rotate_cuda.launches = 0
+            before = counts()["blind_rotate"]
             t0 = time.perf_counter()
             for _ in range(ITERS):
                 outs[name] = ctxs[name].nand(outs[name], b)
             torch.cuda.synchronize()
             times[name].append((time.perf_counter() - t0) / ITERS)
-            launches[name] = BR.blind_rotate_cuda.launches / ITERS
+            launches[name] = (counts()["blind_rotate"] - before) / ITERS
     # the warm-up gate, then ITERS per appearance in `order`
     want = expected_nand_chain(bits0, bits1, 1 + 2 * ITERS * ROUNDS)
     rate = {n: BATCH / statistics.median(t) for n, t in times.items()}

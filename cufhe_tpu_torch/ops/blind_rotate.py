@@ -33,6 +33,7 @@ import torch
 
 from ..params import GateParams
 from ..torus import int_mm
+from ..utils.spans import count, span
 from .limbs import (LIMB_BITS, NLIMBS, decomp_digit_limb_plan,
                     u32_to_signed_limbs)
 from .poly import decompose_rotate_sub, split_decomp_digits
@@ -255,17 +256,10 @@ def blind_rotate_cuda(acc: torch.Tensor, abar: torch.Tensor,
             dec.data_ptr(), B, n0, N, nbit, k, l, Bgbit, nd, dbits, nlimbs,
             off, split, stream)
     _raise_on(lib, rc, "cufhe_blind_rotate")
-    blind_rotate_cuda.launches += 1
-    blind_rotate_cuda.by_nlimbs[nlimbs] += 1
-    rotdec_cuda.launches += n0
+    count("blind_rotate")
+    count(f"blind_rotate.limbs{nlimbs}")
+    count("rotdec", n0)
     return out
-
-
-#: blind rotations launched through the kernels (one per successful call),
-#: in all and by the key's limb count: 4 the exact instance of the product
-#: kernel, 3 the pallas3 instance
-blind_rotate_cuda.launches = 0
-blind_rotate_cuda.by_nlimbs = dict.fromkeys(KEY_LIMBS, 0)
 
 
 def rotdec_cuda(acc: torch.Tensor, abar_i: torch.Tensor,
@@ -290,13 +284,8 @@ def rotdec_cuda(acc: torch.Tensor, abar_i: torch.Tensor,
                               dec.data_ptr(), B, N, nbit, k, l, Bgbit, nd,
                               dbits, off, stream)
     _raise_on(lib, rc, "cufhe_rotdec")
-    rotdec_cuda.launches += 1
+    count("rotdec")
     return dec
-
-
-#: launches of the rotate-and-decompose kernel: one per rotdec_cuda call,
-#: n0 per blind_rotate_cuda call (cufhe_blind_rotate launches it each step)
-rotdec_cuda.launches = 0
 
 
 def rotdec(acc: torch.Tensor, abar_i: torch.Tensor,
@@ -324,8 +313,9 @@ def blind_rotate(acc: torch.Tensor, abar: torch.Tensor, bk_ext: torch.Tensor,
         raise ValueError(f"the path reads a {nlimbs}-limb key, bk_ext is "
                          f"{tuple(bk_ext.shape)} (limbs in dim 3): prepare "
                          f"the key for this backend")
-    if acc.device.type == "cuda":
-        return blind_rotate_cuda(acc, abar, bk_ext, params)
-    if acc.device.type == "cpu":
-        return blind_rotate_ref(acc, abar, bk_ext, params)
+    with span("cufhe.blind_rotate"):
+        if acc.device.type == "cuda":
+            return blind_rotate_cuda(acc, abar, bk_ext, params)
+        if acc.device.type == "cpu":
+            return blind_rotate_ref(acc, abar, bk_ext, params)
     raise NotImplementedError(f"no blind rotation for device {acc.device}")

@@ -27,6 +27,7 @@ import torch
 
 from ..params import GateParams
 from ..torus import i32, srl
+from ..utils.spans import span
 from . import blind_rotate as BR
 from . import ntt as NTT
 from .keys import DeviceKeys
@@ -201,13 +202,14 @@ def gate_lvl0(gate_consts, in0: torch.Tensor, in1: torch.Tensor,
     into the mod switch, blind rotation, extraction, key switch back to
     lvl0. gate_consts is (ca, cb, om) as in golden.GATE_CONSTANTS, or
     per-row constants [B, 3] (encode_gate_consts_rows)."""
-    ca, cb, off = _gate_coeffs(gate_consts, params.lvl0.mu)
-    n0 = params.lvl0.dim
-    a, b = _pre_add(in0, in1, ca, cb, off, n0)
-    acc = blind_rotate(a, b, params.lvl1.mu, keys, params, backend)
-    # the extraction's index reversal lives in the KSK row permutation
-    tlwe1 = sample_extract_for_ks(acc, params.lvl1)
-    return key_switch(tlwe1, keys.ksk_limbs_sei, params)
+    with span("cufhe.gate"):
+        ca, cb, off = _gate_coeffs(gate_consts, params.lvl0.mu)
+        n0 = params.lvl0.dim
+        a, b = _pre_add(in0, in1, ca, cb, off, n0)
+        acc = blind_rotate(a, b, params.lvl1.mu, keys, params, backend)
+        # the extraction's index reversal lives in the KSK row permutation
+        tlwe1 = sample_extract_for_ks(acc, params.lvl1)
+        return key_switch(tlwe1, keys.ksk_limbs_sei, params)
 
 
 def gate_lvl1(gate_consts, in0: torch.Tensor, in1: torch.Tensor,
@@ -215,12 +217,13 @@ def gate_lvl1(gate_consts, in0: torch.Tensor, in1: torch.Tensor,
               backend: str = "auto") -> torch.Tensor:
     """HomGate in iks -> br order: lvl1 inputs [B, k*N+1], the pre-add
     fused into the key switch, blind rotation, extraction to lvl1."""
-    ca, cb, off = _gate_coeffs(gate_consts, params.lvl1.mu)
-    n0 = params.lvl0.dim
-    tlwe0 = _key_switch_lvl1(in0, keys, params, pre=(ca, cb, off, in1))
-    acc = blind_rotate(tlwe0[:, :n0], tlwe0[:, n0], params.lvl1.mu, keys,
-                       params, backend)
-    return sample_extract_index0(acc, params.lvl1)
+    with span("cufhe.gate"):
+        ca, cb, off = _gate_coeffs(gate_consts, params.lvl1.mu)
+        n0 = params.lvl0.dim
+        tlwe0 = _key_switch_lvl1(in0, keys, params, pre=(ca, cb, off, in1))
+        acc = blind_rotate(tlwe0[:, :n0], tlwe0[:, n0], params.lvl1.mu, keys,
+                           params, backend)
+        return sample_extract_index0(acc, params.lvl1)
 
 
 def mux_lvl0(inc, in1, in0, keys: DeviceKeys, params: GateParams,
@@ -228,36 +231,38 @@ def mux_lvl0(inc, in1, in0, keys: DeviceKeys, params: GateParams,
     """Mux(inc ? in1 : in0) on lvl0 inputs (nmux with negate): the
     AND(c, in1) and ANDNY(c, in0) rotations summed, b += mu (negated
     first for nmux), extraction, key switch."""
-    n0 = params.lvl0.dim
-    mu0, mu1 = params.lvl0.mu, params.lvl1.mu
-    a1, b1 = _pre_add(inc, in1, 1, 1, i32(-mu0), n0)
-    acc1 = blind_rotate(a1, b1, mu1, keys, params, backend)
-    a0, b0 = _pre_add(inc, in0, -1, 1, i32(-mu0), n0)
-    acc0 = blind_rotate(a0, b0, mu1, keys, params, backend)
-    acc = acc1 + acc0
-    if negate:
-        acc = -acc
-    acc[:, params.lvl1.k, 0] += i32(-mu1 if negate else mu1)
-    tlwe1 = sample_extract_for_ks(acc, params.lvl1)
-    return key_switch(tlwe1, keys.ksk_limbs_sei, params)
+    with span("cufhe.gate"):
+        n0 = params.lvl0.dim
+        mu0, mu1 = params.lvl0.mu, params.lvl1.mu
+        a1, b1 = _pre_add(inc, in1, 1, 1, i32(-mu0), n0)
+        acc1 = blind_rotate(a1, b1, mu1, keys, params, backend)
+        a0, b0 = _pre_add(inc, in0, -1, 1, i32(-mu0), n0)
+        acc0 = blind_rotate(a0, b0, mu1, keys, params, backend)
+        acc = acc1 + acc0
+        if negate:
+            acc = -acc
+        acc[:, params.lvl1.k, 0] += i32(-mu1 if negate else mu1)
+        tlwe1 = sample_extract_for_ks(acc, params.lvl1)
+        return key_switch(tlwe1, keys.ksk_limbs_sei, params)
 
 
 def mux_lvl1(inc, in1, in0, keys: DeviceKeys, params: GateParams,
              negate: bool = False, backend: str = "auto") -> torch.Tensor:
     """Mux on lvl1 inputs: two key switches with the pre-add fused, two
     rotations, the TRLWEs summed, extraction, b +- mu."""
-    n0 = params.lvl0.dim
-    d1 = params.lvl1.k * params.lvl1.n
-    mu1 = params.lvl1.mu
-    t1 = _key_switch_lvl1(inc, keys, params, pre=(1, 1, -mu1, in1))
-    acc1 = blind_rotate(t1[:, :n0], t1[:, n0], mu1, keys, params, backend)
-    t0 = _key_switch_lvl1(inc, keys, params, pre=(-1, 1, -mu1, in0))
-    acc0 = blind_rotate(t0[:, :n0], t0[:, n0], mu1, keys, params, backend)
-    out = sample_extract_index0(acc1 + acc0, params.lvl1)
-    if negate:
-        out = -out
-    out[:, d1] += i32(-mu1 if negate else mu1)
-    return out
+    with span("cufhe.gate"):
+        n0 = params.lvl0.dim
+        d1 = params.lvl1.k * params.lvl1.n
+        mu1 = params.lvl1.mu
+        t1 = _key_switch_lvl1(inc, keys, params, pre=(1, 1, -mu1, in1))
+        acc1 = blind_rotate(t1[:, :n0], t1[:, n0], mu1, keys, params, backend)
+        t0 = _key_switch_lvl1(inc, keys, params, pre=(-1, 1, -mu1, in0))
+        acc0 = blind_rotate(t0[:, :n0], t0[:, n0], mu1, keys, params, backend)
+        out = sample_extract_index0(acc1 + acc0, params.lvl1)
+        if negate:
+            out = -out
+        out[:, d1] += i32(-mu1 if negate else mu1)
+        return out
 
 
 def not_gate(ct: torch.Tensor) -> torch.Tensor:

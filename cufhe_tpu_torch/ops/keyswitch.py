@@ -15,6 +15,7 @@ import torch
 
 from ..params import GateParams
 from ..torus import i32, int_mm
+from ..utils.spans import span
 from .limbs import LIMB_BITS, NLIMBS
 
 
@@ -58,22 +59,24 @@ def key_switch(tlwe1: torch.Tensor, ksk_limbs: torch.Tensor,
     d1 mask columns after the pre-add (keys.DeviceKeys.sei_perm: a
     natural-order input against ksk_limbs_sei). Returns [B, n0+1] int32.
     """
-    d1 = params.lvl1.k * params.lvl1.n
-    n0 = params.lvl0.dim
-    if pre is not None:
-        ca, cb, off, other = pre
-        comb = _per_row(ca, (-1, 1)) * tlwe1 + _per_row(cb, (-1, 1)) * other
-        a_in = comb[:, :d1]
-        b_in = comb[:, d1] + _per_row(off, (-1,))
-    else:
-        a_in = tlwe1[:, :d1]
-        b_in = tlwe1[:, d1]
-    if perm is not None:
-        a_in = a_in[:, perm]
-    co = ks_decompose_coeffs(a_in, params)
-    out = None
-    for l in range(NLIMBS):
-        prod = int_mm(co, ksk_limbs[l]) << (LIMB_BITS * l)
-        out = prod if out is None else out + prod
-    out[:, n0] += b_in
-    return out
+    with span("cufhe.key_switch"):
+        d1 = params.lvl1.k * params.lvl1.n
+        n0 = params.lvl0.dim
+        if pre is not None:
+            ca, cb, off, other = pre
+            comb = (_per_row(ca, (-1, 1)) * tlwe1
+                    + _per_row(cb, (-1, 1)) * other)
+            a_in = comb[:, :d1]
+            b_in = comb[:, d1] + _per_row(off, (-1,))
+        else:
+            a_in = tlwe1[:, :d1]
+            b_in = tlwe1[:, d1]
+        if perm is not None:
+            a_in = a_in[:, perm]
+        co = ks_decompose_coeffs(a_in, params)
+        out = None
+        for l in range(NLIMBS):
+            prod = int_mm(co, ksk_limbs[l]) << (LIMB_BITS * l)
+            out = prod if out is None else out + prod
+        out[:, n0] += b_in
+        return out

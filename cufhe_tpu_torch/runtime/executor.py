@@ -30,6 +30,7 @@ import torch
 from ..models.api import Context, Ctxt
 from ..ops import bootstrap as B
 from ..torus import i32
+from ..utils.spans import count, span
 from .graph import Schedule
 
 _LINEAR = ("not", "copy")
@@ -238,16 +239,18 @@ class _Program:
 
     def __init__(self, ctx: Context, sched: Schedule, batch: int,
                  level: int):
-        lp = ctx.params.lvl0 if level == 0 else ctx.params.lvl1
-        self.width = lp.dim + 1
-        self.mu = lp.mu
-        self.level = level
-        self.slot = allocate_slots(sched)
-        self.num_slots = max(self.slot.values()) + 1 if self.slot else 1
-        self.plans = plan_schedule(sched, self.slot, _exec_chunk(batch),
-                                   lp.mu, ctx.device)
-        self.const_rows = [(self.slot[w], v)
-                           for w, v in sched.consts.items()]
+        count("executor.plans")
+        with span("cufhe.executor.plan"):
+            lp = ctx.params.lvl0 if level == 0 else ctx.params.lvl1
+            self.width = lp.dim + 1
+            self.mu = lp.mu
+            self.level = level
+            self.slot = allocate_slots(sched)
+            self.num_slots = max(self.slot.values()) + 1 if self.slot else 1
+            self.plans = plan_schedule(sched, self.slot, _exec_chunk(batch),
+                                       lp.mu, ctx.device)
+            self.const_rows = [(self.slot[w], v)
+                               for w, v in sched.consts.items()]
 
     def registers(self, ctx: Context, rows: List[int],
                   planes: List[torch.Tensor]) -> torch.Tensor:
@@ -274,7 +277,8 @@ class _Program:
         ctx._check_keys()                   # raises on released keys
         for plan in self.plans:
             for step in plan:
-                _run_step(ctx, regs, step, self.level)
+                with span("cufhe.executor.step"):
+                    _run_step(ctx, regs, step, self.level)
         return regs
 
 
@@ -314,11 +318,12 @@ def run_schedule(ctx: Context, sched: Schedule, inputs: Sequence[Ctxt],
     if not inputs and not sched.inputs and not sched.consts:
         return []
     Bsz, _, lvl = _check_inputs(ctx, sched, inputs)
-    prog = _Program(ctx, sched, Bsz, lvl)
-    regs = prog.registers(ctx, [prog.slot[w] for w in sched.inputs],
-                          ctx._inputs(*inputs))
-    prog.run(ctx, regs)
-    return ctx._outputs(prog.outputs(regs, sched), lvl)
+    with span("cufhe.executor.run"):
+        prog = _Program(ctx, sched, Bsz, lvl)
+        regs = prog.registers(ctx, [prog.slot[w] for w in sched.inputs],
+                              ctx._inputs(*inputs))
+        prog.run(ctx, regs)
+        return ctx._outputs(prog.outputs(regs, sched), lvl)
 
 
 def run_schedule_loop(ctx: Context, sched: Schedule, inputs: Sequence[Ctxt],
@@ -345,8 +350,9 @@ def run_schedule_loop(ctx: Context, sched: Schedule, inputs: Sequence[Ctxt],
     in_rows = [prog.slot[w] for w in sched.inputs]
     planes = ctx._inputs(*inputs)
     for _ in range(cycles):
-        regs = prog.run(ctx, prog.registers(ctx, in_rows, planes))
-        outs = prog.outputs(regs, sched)
-        for o, i in feedback:
-            planes[i] = outs[o]
+        with span("cufhe.executor.run"):
+            regs = prog.run(ctx, prog.registers(ctx, in_rows, planes))
+            outs = prog.outputs(regs, sched)
+            for o, i in feedback:
+                planes[i] = outs[o]
     return ctx._outputs(outs, lvl)

@@ -1,1 +1,2 @@
-"""Key and ciphertext files (serialization) and timing helpers (timing)."""
+"""Key and ciphertext files (serialization), timing helpers (timing), and
+the program's spans and counters (spans)."""

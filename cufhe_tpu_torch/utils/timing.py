@@ -81,7 +81,8 @@ def time_fn(fn, *args, iters: int = 5, warmup: int = 1, device="cuda",
 @contextmanager
 def trace(path: str, cuda: bool = True):
     """torch.profiler over the body (CPU, and CUDA unless cuda=False); the
-    trace is written to `path` as Chrome trace JSON."""
+    trace is written to `path` as Chrome trace JSON, the program's
+    cufhe.* spans (utils.spans) among the kernels."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     with profile(activities=acts) as prof:

@@ -16,6 +16,7 @@ from cufhe_tpu_torch.ops import bootstrap as TB
 from cufhe_tpu_torch.ops import keys as TK
 from cufhe_tpu_torch.ops.limbs import decomp_digit_limb_plan
 from cufhe_tpu_torch.torus import from_u32, to_u32
+from cufhe_tpu_torch.utils.spans import counts
 
 PALLAS_PRESETS = [P.PALLAS_TINY, P.PALLAS_TINY_K2, P.PALLAS_BG10]
 
@@ -68,11 +69,11 @@ def test_blind_rotate_dispatch_on_cpu():
                                 dtype=np.uint64).astype(np.uint32))
     abar = from_u32(rng.integers(0, 2 * params.lvl1.n, (params.n0, 3))
                     .astype(np.uint32))
-    before = BR.blind_rotate_cuda.launches
+    before = counts()["blind_rotate"]
     out = BR.blind_rotate(acc, abar, keys.bk_ext, params)
     assert torch.equal(out, BR.blind_rotate_ref(acc, abar, keys.bk_ext,
                                                 params))
-    assert BR.blind_rotate_cuda.launches == before
+    assert counts()["blind_rotate"] == before
     # the kernel's wrapper takes CUDA tensors only: no CPU fallback in it
     with pytest.raises(ValueError, match="CUDA"):
         BR.blind_rotate_cuda(acc, abar, keys.bk_ext, params)

@@ -31,6 +31,7 @@ from cufhe_tpu_torch.runtime import (Stream, build_ripple_adder,
                                      run_schedule, synchronize)
 from cufhe_tpu_torch.runtime import executor as EX
 from cufhe_tpu_torch.torus import from_u32, int_mm, to_u32
+from cufhe_tpu_torch.utils.spans import counts
 
 #: the published parameter sets, at full size
 FULL_PRESETS = [P.TFHEPP_128, P.TFHEPP_128_BG8, P.TFHEPP_80, P.CGGI19,
@@ -73,11 +74,11 @@ def _device_keys(params, seed):
 def test_cuda_kernel_matches_ref(params, rows, cuda):
     keys = _device_keys(params, 80)
     acc, abar = _random_inputs(params, rows, 81, cuda)
-    before = BR.blind_rotate_cuda.launches
+    before = counts()["blind_rotate"]
     got = BR.blind_rotate(acc, abar, keys.bk_ext, params)
     want = BR.blind_rotate_ref(acc, abar, keys.bk_ext, params)
     torch.cuda.synchronize()
-    assert BR.blind_rotate_cuda.launches == before + 1
+    assert counts()["blind_rotate"] == before + 1
     assert torch.equal(got, want)
     if params.lvl1.n <= 128:          # the CPU's plain version too
         assert torch.equal(got.cpu(), BR.blind_rotate_ref(
@@ -101,14 +102,14 @@ def test_cuda_kernel_rejects_bad_inputs(cuda):
         name="int32-bound", lvl0=P.LweParams(n=1),
         lvl1=P.TrlweParams(nbit=15, k=1, l=3, Bgbit=8), ks=P.KeySwitchParams())
     N = wide.lvl1.n
-    before = BR.blind_rotate_cuda.launches
+    before = counts()["blind_rotate"]
     with pytest.raises(RuntimeError, match="invalid argument"):
         BR.blind_rotate_cuda(
             torch.zeros((1, 2, N), dtype=torch.int32, device=cuda),
             torch.zeros((1, 1), dtype=torch.int32, device=cuda),
             torch.zeros((1, 6, 2, 4, 2 * N), dtype=torch.int8, device=cuda),
             wide)
-    assert BR.blind_rotate_cuda.launches == before
+    assert counts()["blind_rotate"] == before
 
 
 @pytest.mark.parametrize("rows", [1, 8, 129])
@@ -118,11 +119,11 @@ def test_cuda_kernel_rejects_bad_inputs(cuda):
                          ids=lambda p: p.name)
 def test_cuda_rotdec_matches_ref(params, rows, cuda):
     acc, abar = RD.random_inputs(params, rows, 90, cuda)
-    before = BR.rotdec_cuda.launches
+    before = counts()["rotdec"]
     got = BR.rotdec(acc, abar, params)
     want = BR.rotdec_ref(acc, abar, params)
     torch.cuda.synchronize()
-    assert BR.rotdec_cuda.launches == before + 1
+    assert counts()["rotdec"] == before + 1
     assert torch.equal(got, want)
 
 
@@ -139,9 +140,9 @@ def test_cuda_blind_rotate_counts_rotdec_launches(cuda):
     params = P.TINY
     keys = _device_keys(params, 92)
     acc, abar = _random_inputs(params, 3, 93, cuda)
-    before = BR.rotdec_cuda.launches
+    before = counts()["rotdec"]
     BR.blind_rotate_cuda(acc, abar, keys.bk_ext, params)
-    assert BR.rotdec_cuda.launches == before + params.n0
+    assert counts()["rotdec"] == before + params.n0
 
 
 def _wide(nbit, l=1, Bgbit=2):
@@ -162,14 +163,14 @@ def test_cuda_rotdec_holds_rows_to_32768_and_refuses_wider(cuda):
     N = wide.lvl1.n
     acc = torch.zeros((1, 2, N), dtype=torch.int32, device=cuda)
     abar = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
-    before = (BR.rotdec_cuda.launches, BR.blind_rotate_cuda.launches)
+    before = (counts()["rotdec"], counts()["blind_rotate"])
     with pytest.raises(RuntimeError, match="invalid argument"):
         BR.rotdec_cuda(acc, abar[0], wide)
     with pytest.raises(RuntimeError, match="invalid argument"):
         BR.blind_rotate_cuda(
             acc, abar, torch.zeros((1, 2, 2, 4, 2 * N), dtype=torch.int8,
                                    device=cuda), wide)
-    assert (BR.rotdec_cuda.launches, BR.blind_rotate_cuda.launches) == before
+    assert (counts()["rotdec"], counts()["blind_rotate"]) == before
 
 
 def test_cuda_rotdec_rejects_bad_inputs(cuda):
@@ -184,10 +185,10 @@ def test_cuda_rotdec_rejects_bad_inputs(cuda):
         BR.rotdec_cuda(acc, abar.cpu(), params)
     # cp.async reads acc in 16-byte pieces: a view 4 bytes off is refused
     flat = torch.zeros(acc.numel() + 1, dtype=torch.int32, device=cuda)
-    before = BR.rotdec_cuda.launches
+    before = counts()["rotdec"]
     with pytest.raises(RuntimeError, match="invalid argument"):
         BR.rotdec_cuda(flat[1:].view(acc.shape), abar, params)
-    assert BR.rotdec_cuda.launches == before
+    assert counts()["rotdec"] == before
 
 
 def test_int_mm_cuda_shape_limits(cuda):
@@ -345,17 +346,17 @@ def test_cuda_lvl1_gates_and_mux_match_golden(params, cuda):
         c = encrypt_bits(bitsc, sk, rng, device=cuda, level=level)
         if level == 1:
             for name in TWO_INPUT:
-                before = BR.blind_rotate_cuda.launches
+                before = counts()["blind_rotate"]
                 out = ctx.gate(name, a, b)
-                assert BR.blind_rotate_cuda.launches == before + 1
+                assert counts()["blind_rotate"] == before + 1
                 want = np.stack([G.gate_lvl1(name, x, y, ek) for x, y in
                                  zip(to_u32(a.data), to_u32(b.data))])
                 assert np.array_equal(to_u32(out.data), want), name
         gold = G.mux_lvl0 if level == 0 else G.mux_lvl1
         for negate in (False, True):
-            before = BR.blind_rotate_cuda.launches
+            before = counts()["blind_rotate"]
             out = ctx.mux(c, a, b, negate=negate)
-            assert BR.blind_rotate_cuda.launches == before + 2
+            assert counts()["blind_rotate"] == before + 2
             want = np.stack([gold(x, y, z, ek, negate=negate) for x, y, z in
                              zip(to_u32(c.data), to_u32(a.data),
                                  to_u32(b.data))])
@@ -383,11 +384,11 @@ def test_cuda_kernel_matches_ref_full_presets(params, rows, cuda):
     (radix4_2048) included; 1, 63 and 65 rows split the contraction."""
     bk_ext = _random_bk_ext(params, 98, cuda)
     acc, abar = _random_inputs(params, rows, 99, cuda)
-    before = BR.blind_rotate_cuda.launches
+    before = counts()["blind_rotate"]
     got = BR.blind_rotate_cuda(acc, abar, bk_ext, params)
     want = BR.blind_rotate_ref(acc, abar, bk_ext, params)
     torch.cuda.synchronize()
-    assert BR.blind_rotate_cuda.launches == before + 1
+    assert counts()["blind_rotate"] == before + 1
     assert torch.equal(got, want)
 
 
@@ -442,9 +443,9 @@ def test_run_schedule_on_the_card_equals_the_cpu(chunk, cuda, monkeypatch):
     bits = rng.integers(0, 2, (9, 5))
     ctx, cpu = Context(ek), Context(ek, device="cpu")
     enc = [encrypt_bits(b, sk, rng) for b in bits]
-    before = BR.blind_rotate_cuda.launches
+    before = counts()["blind_rotate"]
     outs = run_schedule(ctx, s, enc)
-    assert BR.blind_rotate_cuda.launches - before == \
+    assert counts()["blind_rotate"] - before == \
         EX.plan_rotations(EX.schedule_steps(ctx, s, 5))
     want = run_schedule(cpu, s, [Ctxt(c.data.cpu(), 0) for c in enc])
     for o, w in zip(outs, want):
@@ -524,11 +525,11 @@ def test_integers_on_the_card_equal_the_cpu(op, cuda):
     for dev in ("cuda", "cpu"):
         ictx = IntContext(Context(ek, device=dev))
         x, y, n, d = _int_pair(dev)
-        before = BR.blind_rotate_cuda.launches
+        before = counts()["blind_rotate"]
         outs[dev] = (ictx.add_full(x, y) if op == "add_full"
                      else ictx.divmod_(n, d))
         if dev == "cuda":
-            assert BR.blind_rotate_cuda.launches - before == \
+            assert counts()["blind_rotate"] - before == \
                 (8 if op == "add_full" else 4 * 6)
     (a, b), (c, e) = outs["cuda"], outs["cpu"]
     for got, want in ((a, c), (b, e)):
@@ -603,9 +604,9 @@ def test_ntt_on_the_card_equals_the_cpu(params, cuda):
         a, b = (encrypt_bits(x, sk, np.random.default_rng(113 + i),
                              device=dev) for i, x in enumerate((bits0,
                                                                 bits1)))
-        before = BR.blind_rotate_cuda.launches
+        before = counts()["blind_rotate"]
         outs[dev] = ctx.nand(a, b)
-        assert BR.blind_rotate_cuda.launches == before
+        assert counts()["blind_rotate"] == before
     assert outs["cuda"].data.is_cuda
     assert np.array_equal(to_u32(outs["cuda"].data), to_u32(outs["cpu"].data))
     assert decrypt_bits(outs["cuda"], sk).tolist() == \
@@ -624,9 +625,9 @@ def test_two_shard_mesh_on_one_card_equals_plain(cuda):
     mesh_ctx = Context(ek, mesh=data_mesh(["cuda:0", "cuda:0"]))
     assert mesh_ctx.device == torch.device("cuda", 0)
     assert not mesh_ctx._dev_keys
-    before = BR.blind_rotate_cuda.launches
+    before = counts()["blind_rotate"]
     out = mesh_ctx.nand(a, b)
-    assert BR.blind_rotate_cuda.launches == before + 2
+    assert counts()["blind_rotate"] == before + 2
     assert torch.equal(out.data, Context(ek).nand(a, b).data)
 
 
@@ -636,14 +637,19 @@ def _random_bk_ext3(params, seed, device):
     return _random_bk_ext(params, seed, device)[:, :, :, 1:].contiguous()
 
 
+def _by_nlimbs():
+    """Rotations launched so far, by the key's limb count."""
+    c = counts()
+    return {3: c["blind_rotate.limbs3"], 4: c["blind_rotate.limbs4"]}
+
+
 def _rotate3(acc, abar, bk_ext3, params):
     """One three-limb rotation through the kernel, counted: the pallas3
     instance launched once, the exact one not at all."""
-    before = dict(BR.blind_rotate_cuda.by_nlimbs)
+    before = _by_nlimbs()
     got = BR.blind_rotate_cuda(acc, abar, bk_ext3, params)
     torch.cuda.synchronize()
-    assert BR.blind_rotate_cuda.by_nlimbs == {3: before[3] + 1,
-                                              4: before[4]}
+    assert _by_nlimbs() == {3: before[3] + 1, 4: before[4]}
     return got
 
 
@@ -710,14 +716,14 @@ def test_cuda_refuses_other_limb_counts(cuda):
     torch.cuda.synchronize()
     bk2 = _random_bk_ext(P.PALLAS_TINY, 135, cuda)[:, :, :, 2:].contiguous()
     acc, abar = _random_inputs(P.PALLAS_TINY, 2, 136, cuda)
-    before = BR.blind_rotate_cuda.launches
+    before = counts()["blind_rotate"]
     with pytest.raises(ValueError, match="4 or 3"):
         BR.blind_rotate_cuda(acc, abar, bk2, P.PALLAS_TINY)
     acc64, abar64 = _random_inputs(P.TINY, 2, 136, cuda)
     with pytest.raises(RuntimeError, match="invalid argument"):
         BR.blind_rotate_cuda(acc64, abar64, _random_bk_ext3(P.TINY, 135,
                                                             cuda), P.TINY)
-    assert BR.blind_rotate_cuda.launches == before
+    assert counts()["blind_rotate"] == before
 
 
 @pytest.mark.parametrize("params", [P.PALLAS_TINY, P.PALLAS_BG10],
@@ -737,10 +743,9 @@ def test_cuda_pallas3_context_equals_the_cpu(params, cuda):
         for dev in ("cuda", "cpu"):
             ctx = Context(ek, "pallas3", device=dev)
             a, b, c = (Ctxt(from_u32(h, dev), 0) for h in hosts)
-            before = dict(BR.blind_rotate_cuda.by_nlimbs)
+            before = _by_nlimbs()
             outs[dev] = [ctx.nand(a, b), ctx.xor(a, b), ctx.mux(c, a, b)]
-            launched = {nl: BR.blind_rotate_cuda.by_nlimbs[nl] - before[nl]
-                        for nl in before}
+            launched = {nl: _by_nlimbs()[nl] - before[nl] for nl in before}
             assert launched == ({3: 4, 4: 0} if dev == "cuda"
                                 else {3: 0, 4: 0})
     for got, want in zip(outs["cuda"], outs["cpu"]):

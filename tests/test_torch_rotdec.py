@@ -17,6 +17,7 @@ from cufhe_tpu_torch.ops import blind_rotate as BR
 from cufhe_tpu_torch.ops.limbs import decomp_digit_limb_plan
 from cufhe_tpu_torch.ops.poly import decompose_rotate_sub
 from cufhe_tpu_torch.torus import to_u32
+from cufhe_tpu_torch.utils.spans import counts
 
 PRESETS = ["PALLAS_TINY", "TINY", "TINY_K2", "PALLAS_BG10"]
 
@@ -73,10 +74,10 @@ def test_rotdec_ref_sub_digits_recombine():
 def test_rotdec_dispatch_on_cpu():
     params = P.TINY
     acc, abar = RD.random_inputs(params, 3, 42, "cpu")
-    before = BR.rotdec_cuda.launches
+    before = counts()["rotdec"]
     assert torch.equal(BR.rotdec(acc, abar, params),
                        BR.rotdec_ref(acc, abar, params))
-    assert BR.rotdec_cuda.launches == before
+    assert counts()["rotdec"] == before
     with pytest.raises(NotImplementedError, match="meta"):
         BR.rotdec(acc.to("meta"), abar.to("meta"), params)
 
@@ -89,7 +90,7 @@ def test_rotdec_cuda_checks_before_any_build(monkeypatch):
     monkeypatch.setattr(_build, "load", no_build)
     params = P.TINY
     acc, abar = RD.random_inputs(params, 3, 43, "cpu")
-    before = BR.rotdec_cuda.launches
+    before = counts()["rotdec"]
     with pytest.raises(ValueError, match="CUDA"):
         BR.rotdec_cuda(acc, abar, params)
     with pytest.raises(ValueError, match="want"):
@@ -98,7 +99,7 @@ def test_rotdec_cuda_checks_before_any_build(monkeypatch):
         BR.rotdec_cuda(acc[:, :1], abar, params)
     with pytest.raises(ValueError, match="want"):
         BR.rotdec_cuda(acc, abar[:2], params)
-    assert BR.rotdec_cuda.launches == before
+    assert counts()["rotdec"] == before
 
 
 def test_blind_rotate_ref_steps_through_rotdec_ref(monkeypatch):
