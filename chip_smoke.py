@@ -135,10 +135,12 @@ REPLACES = "cufhe_tpu/ops/pallas_br.py:762"
 ROTDEC_REPLACES = "cufhe_tpu/ops/pallas_br.py:428"
 #: launches of rotdec_kernel timed alone (the median is reported)
 ROTDEC_LAUNCHES = 25
-#: the product kernel's instances, extprod_kernel<NL, SEG>: four limbs at
-#: N >= 128, 64 and 32; three limbs at N >= 128
-EXTPROD_INSTANCES = ("extprod_kernel<4, 128>", "extprod_kernel<4, 64>",
-                     "extprod_kernel<4, 32>", "extprod_kernel<3, 128>")
+#: the product kernel's instances, extprod_kernel<NL, SEG, D>: four limbs
+#: at N >= 128, 64 and 32; three limbs at N >= 128; four limbs at
+#: Karatsuba depths 1 and 2 (leaves of >= 128 coefficients)
+EXTPROD_INSTANCES = ("extprod_kernel<4, 128, 0>", "extprod_kernel<4, 64, 0>",
+                     "extprod_kernel<4, 32, 0>", "extprod_kernel<3, 128, 0>",
+                     "extprod_kernel<4, 128, 1>", "extprod_kernel<4, 128, 2>")
 PROBE_SOURCE = "cufhe_tpu_torch/csrc/mxu_peak.cu"
 WGMMA_SOURCE = "cufhe_tpu_torch/csrc/mxu_peak_wgmma.cu"
 PROBE_REPLACES = "benchmarks/mxu_peak.py:116"
@@ -1457,7 +1459,7 @@ def phase_pallas3(ek, sk, p5, tag: str) -> dict:
     max_err, plain_ms = 0, None
     for name, rows_list in PALLAS3_SETS:
         params = T.PRESETS[name]
-        key3 = RT.random_keys(params, 800, DEV, limbs=(3,))[3]
+        key3 = RT.random_keys(params, 800, DEV, [(3, 0)])[3, 0]
         for rows in rows_list:
             acc, abar = RT.random_rotation_inputs(params, rows, 700 + rows,
                                                   DEV)
@@ -1487,13 +1489,20 @@ def phase_pallas3(ek, sk, p5, tag: str) -> dict:
         raise AssertionError("an extprod_kernel instance is missing, holds "
                              "an IMMA or no IGMMA")
     # per stage, at the same tile: NL wgmma a k-step
-    if 4 * gmma["extprod_kernel<3, 128>"] != 3 * gmma["extprod_kernel<4, 128>"]:
+    if (4 * gmma["extprod_kernel<3, 128, 0>"]
+            != 3 * gmma["extprod_kernel<4, 128, 0>"]):
         raise AssertionError("the three-limb instance does not issue 3/4 of "
                              "the four-limb instance's MMAs")
+    # a leaf's stage is the depth-0 stage: the same MMAs
+    if len({gmma[f"extprod_kernel<4, 128, {d}>"] for d in range(3)}) != 1:
+        raise AssertionError("a Karatsuba instance issues other MMAs a "
+                             "stage than the depth-0 one")
 
-    recs = {r["nlimbs"]: r for r in RT.measure(T.TFHEPP_128, BATCH)}
-    for nl, r in recs.items():
-        log(f"rotation at B={BATCH}, {T.TFHEPP_128.name}, {nl} limbs: "
+    recs = {(r["nlimbs"], r["depth"]): r
+            for r in RT.measure(T.TFHEPP_128, BATCH)}
+    for (nl, depth), r in recs.items():
+        log(f"rotation at B={BATCH}, {T.TFHEPP_128.name}, {nl} limbs, "
+            f"Karatsuba depth {depth}: "
             f"{r['ms']:.1f} ms (reps "
             f"{[round(t, 1) for t in r['ms_reps']]}), "
             f"{r['tmacs_per_sec']:.2f} int8 TMAC/s, bound "
@@ -1503,7 +1512,7 @@ def phase_pallas3(ek, sk, p5, tag: str) -> dict:
             f"product {r['product_ms_a_launch']:.4f} ms a launch "
             f"({100 * r['product_share_of_bound']:.1f} % of its bound), "
             f"rotdec_kernel {r['rotdec_us_a_launch']:.2f} us {tag}")
-    mine = recs[3]
+    mine = recs[3, 0]
 
     bits0, bits1, a, b, exact, _, gate_rate = p5
     with warnings.catch_warnings(record=True) as caught:
@@ -1576,7 +1585,8 @@ def phase_pallas3(ek, sk, p5, tag: str) -> dict:
             "launches": launches[3],
             "max_abs_err": max_err, "ms": mine["ms"], "plain_ms": plain_ms,
             "bound_ms": mine["bound_ms"], "bound_by": mine["bound_by"],
-            "library_ms": mine["library_ms"], "ms_four_limbs": recs[4]["ms"],
+            "library_ms": mine["library_ms"],
+            "ms_four_limbs": recs[4, BR.kar_depth(T.TFHEPP_128)]["ms"],
             "gates_per_sec": rate, "noise": noise}
 
 
@@ -1659,7 +1669,8 @@ def main() -> int:
             acc, abar_i = RD.random_inputs(params, rows, 500 + i, dev)
             before = counts()["rotdec"]
             got = BR.rotdec_cuda(acc, abar_i, params)
-            want = BR.rotdec_ref(acc, abar_i, params)
+            want = BR.leaf_operands(BR.rotdec_ref(acc, abar_i, params),
+                                    BR.kar_depth(params))
             torch.cuda.synchronize()
             err = int((got.int() - want.int()).abs().max())
             launched = counts()["rotdec"] - before
@@ -1735,7 +1746,7 @@ def main() -> int:
     # yardstick: the library's int8 product at one step's shape, x n0
     n0, lp = T.TFHEPP_128.lvl0.dim, T.TFHEPP_128.lvl1
     M, Wc = BATCH, (lp.k + 1) * 4 * lp.n        # columns (o, limb, c)
-    Kc = round(macs / (M * Wc * n0))            # contraction I * N
+    Kc = (lp.k + 1) * lp.l * lp.n               # contraction I * N
     a8 = torch.randint(-128, 128, (M, Kc), dtype=torch.int8, device=dev)
     b8 = torch.randint(-128, 128, (Kc, Wc), dtype=torch.int8, device=dev)
     torch._int_mm(a8, b8)

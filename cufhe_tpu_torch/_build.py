@@ -111,11 +111,11 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         lib.cufhe_blind_rotate.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
             + [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p])
         lib.cufhe_blind_rotate.restype = ctypes.c_int
         lib.cufhe_rotdec.argtypes = (
-            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
             + [ctypes.c_uint, ctypes.c_void_p])
         lib.cufhe_rotdec.restype = ctypes.c_int
         lib.cufhe_mxu_peak.argtypes = (

@@ -1,21 +1,24 @@
-"""The whole blind rotation on the card (ops.blind_rotate.blind_rotate_cuda:
-rotdec_kernel and extprod_kernel, n0 steps) at each key precision: the
-exact four-limb key and the reduced-precision `pallas3` three-limb key,
-each beside the least time the card could take for its int8
-multiply-adds and one library product of the same shape per step.
+"""The whole blind rotation on the card (the kernels of
+ops.blind_rotate.blind_rotate_cuda: rotdec_kernel and extprod_kernel, n0
+steps) at each key precision and Karatsuba depth: the exact four-limb key at every depth from the set's
+own (ops.blind_rotate.kar_depth) down to 0, and the reduced-precision
+`pallas3` three-limb key (depth 0), each beside the least time the card
+could take for the rotation and one library product of the schoolbook
+shape per step.
 
     python -m cufhe_tpu_torch.benchmarks.rotation [--params tfhepp_128bit]
         [--batch 4096] [--reps 2]
 
-Both run on the same random accumulators and key (limbs 1-3 of the
-four-limb key are the three-limb key), once each, then timed with CUDA
-events (utils.timing.time_fn), one rotation a pair, in turns (each
-precision once, then in reverse order, `reps` times); the median is
-reported. One more rotation at each precision runs under torch.profiler
-for the device time of each kernel a launch: the product
-(extprod_kernel) beside its int8 bound a launch, and rotdec_kernel.
-Prints one JSON line per precision with the card's name and power limit;
-exits 2 without a CUDA device.
+All cases run on the same random accumulators and uint32 key, once each,
+then timed with CUDA events (utils.timing.time_fn), one rotation a pair,
+in turns (each case once, then in reverse order, `reps` times); the
+median is reported. One more rotation of each case runs under
+torch.profiler for the device time of each kernel a launch: the product
+(extprod_kernel) beside the bound a launch, and rotdec_kernel. The bound
+is fhebench/roofline.py's count, fixed whatever implements the product
+(two levels of Karatsuba), so no case reads above 100 %. Prints one JSON
+line per case with the card's name and power limit; exits 2 without a
+CUDA device.
 """
 from __future__ import annotations
 
@@ -30,20 +33,35 @@ from ..ops.limbs import decomp_digit_limb_plan
 from ..utils.timing import time_fn
 from ._common import HBM_BYTES_PER_S, INT8_OPS_PER_S
 
-#: key limb counts, in the order timed
-CASES = (4, 3)
+#: two levels of Karatsuba: 9 of 16 schoolbook products (the count of
+#: fhebench/roofline.py)
+KARATSUBA2 = 9 / 16
+
+
+def cases(params) -> list:
+    """(key limbs, Karatsuba depth) of each timed case, in order: four
+    limbs at the set's depth down to 0, then three limbs where the
+    pallas3 path runs (N >= 128)."""
+    from ..ops.blind_rotate import PALLAS3_MIN_N, kar_depth
+    out = [(4, d) for d in range(kar_depth(params), -1, -1)]
+    if params.lvl1.n >= PALLAS3_MIN_N:
+        out.append((3, 0))
+    return out
 
 
 def rotation_work(params, rows: int, nlimbs: int = 4):
     """(int8 MACs, bytes each read or written once) of one blind rotation
-    of `rows` accumulators with an `nlimbs`-limb key: acc in and out,
-    abar, the key."""
+    of `rows` accumulators with an `nlimbs`-limb key, as
+    fhebench/roofline.py counts them whatever implements the product:
+    (k+1) l digit polynomials (one int8 a gadget digit) x (k+1) output
+    polynomials x N^2 coefficient products x nlimbs x 9/16 a row and step;
+    acc read and written, abar read, the uint32 key read once."""
     lp = params.lvl1
     n0, N, kp1 = params.lvl0.dim, lp.n, lp.k + 1
-    I = kp1 * lp.l * decomp_digit_limb_plan(lp.Bgbit)[0]
-    macs = float(rows) * (I * N) * (kp1 * nlimbs * N) * n0
+    macs = (float(rows) * kp1 * lp.l * kp1 * N * N * nlimbs * KARATSUBA2
+            * n0)
     nbytes = (2 * rows * kp1 * N * 4 + n0 * rows * 4
-              + n0 * I * kp1 * nlimbs * 2 * N)
+              + n0 * kp1 * lp.l * kp1 * N * 4)
     return macs, nbytes
 
 
@@ -67,17 +85,17 @@ def random_rotation_inputs(params, rows: int, seed: int, device):
             from_u32(abar.astype(np.uint32), device))
 
 
-def random_keys(params, seed: int, device, limbs=(4, 3)) -> dict:
-    """{limbs: bk_ext} of one random BK [n0, (k+1)l, k+1, N] at each of
-    `limbs` (no key generation: the kernels' time and parity need only
-    the layout)."""
+def random_keys(params, seed: int, device, todo) -> dict:
+    """{(limbs, depth): bk_ext} of one random BK [n0, (k+1)l, k+1, N] at
+    each (key limbs, Karatsuba depth) of `todo`, built on `device` (no key
+    generation: the kernels' time and parity need only the layout)."""
     from ..ops.blind_rotate import prepare_bk_ext
+    from ..torus import from_u32
     lp = params.lvl1
-    bk = np.random.default_rng(seed).integers(
+    bk = from_u32(np.random.default_rng(seed).integers(
         0, 1 << 32, (params.lvl0.dim, (lp.k + 1) * lp.l, lp.k + 1, lp.n),
-        dtype=np.uint64).astype(np.uint32)
-    return {nl: torch.from_numpy(prepare_bk_ext(bk, params, nl)).to(device)
-            for nl in limbs}
+        dtype=np.uint64).astype(np.uint32), device)
+    return {case: prepare_bk_ext(bk, params, *case) for case in todo}
 
 
 def library_ms(params, rows: int, nlimbs: int, iters: int = 5) -> float:
@@ -114,34 +132,41 @@ def profile_launches(run) -> dict:
 
 
 def measure(params, rows: int, reps: int = 2, seed: int = 40) -> list:
-    """One record per key precision of CASES at `rows` accumulators: its
-    median ms a rotation over 2*reps timed rotations, int8 TMAC/s, bound
-    and library time; and from one profiled rotation, the product's ms a
-    launch against its bound a launch, and rotdec_kernel's."""
+    """One record per case of cases(params) at `rows` accumulators: its
+    median ms a rotation over 2*reps timed rotations, int8 TMAC/s of the
+    bound's count, bound and library time; and from one profiled
+    rotation, the product's ms a launch against the bound a launch, and
+    rotdec_kernel's. The cases' results are checked equal to the first
+    four-limb case's (three limbs: to each other only)."""
     from ..ops import blind_rotate as BR
+    todo = cases(params)
     acc, abar = random_rotation_inputs(params, rows, seed, "cuda")
-    keys = random_keys(params, seed + 1, "cuda")
+    keys = random_keys(params, seed + 1, "cuda", todo)
 
-    def run(nl):
-        return BR.blind_rotate_cuda(acc, abar, keys[nl], params)
+    def run(case):
+        return BR._blind_rotate_cuda(acc, abar, keys[case], params, case[1])
 
-    for nl in CASES:
-        run(nl)
+    first = run(todo[0])
+    for case in todo[1:]:
+        if case[0] == todo[0][0] and not torch.equal(run(case), first):
+            raise AssertionError(f"{params.name}: depth {case[1]} differs "
+                                 f"from depth {todo[0][1]}")
+    del first
     torch.cuda.synchronize()
-    times = {nl: [] for nl in CASES}
+    times = {case: [] for case in todo}
     for _ in range(reps):
-        for nl in CASES + CASES[::-1]:
-            times[nl].append(time_fn(run, nl, iters=1, warmup=0) * 1e3)
+        for case in todo + todo[::-1]:
+            times[case].append(time_fn(run, case, iters=1, warmup=0) * 1e3)
     n0 = params.lvl0.dim
     recs = []
-    for nl, ts in times.items():
+    for (nl, depth), ts in times.items():
         ms = statistics.median(ts)
         macs, nbytes = rotation_work(params, rows, nl)
         bound_ms, bound_by = bound(2 * macs, nbytes)
-        prof = profile_launches(lambda: run(nl))
+        prof = profile_launches(lambda: run((nl, depth)))
         launch_ms = prof["product"][0] / max(prof["product"][1], 1)
         recs.append({"params": params.name, "rows": rows, "nlimbs": nl,
-                     "ms": ms, "ms_reps": ts,
+                     "depth": depth, "ms": ms, "ms_reps": ts,
                      "tmacs_per_sec": macs / ms / 1e9, "macs": macs,
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "share_of_bound": bound_ms / ms,

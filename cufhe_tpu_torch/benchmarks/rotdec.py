@@ -11,7 +11,8 @@ Each launch is timed between two CUDA events with the queue held full
 host time falls inside a pair), the median over --launches: "warm"
 launches follow each other on the same inputs, "cold" ones follow a write
 of 128 MB that evicts the 50 MB L2. Each case is first held against
-rotdec_ref bit for bit. Prints one JSON line per case with the card's
+its plain version bit for bit (rotdec_ref, as leaf operands at the set's
+Karatsuba depth). Prints one JSON line per case with the card's
 name and power limit; exits 2 without a CUDA device.
 """
 from __future__ import annotations
@@ -33,12 +34,15 @@ SLEEP_CYCLES = 200_000_000
 
 def rotdec_bytes(params, rows: int) -> int:
     """Bytes one launch must move at `rows` accumulators: acc [rows, k+1,
-    N] int32 and abar_i [rows] int32 read once, dec [rows, I, N] int8
-    written once."""
+    N] int32 and abar_i [rows] int32 read once, dec written once: [rows,
+    I, N] int8 at Karatsuba depth 0, the leaf operands [rows, 3^d, I,
+    N >> d] at the set's depth d (ops.blind_rotate.kar_depth)."""
+    from ..ops.blind_rotate import kar_depth
     lp = params.lvl1
     kp1 = lp.k + 1
     I = kp1 * lp.l * decomp_digit_limb_plan(lp.Bgbit)[0]
-    return rows * kp1 * lp.n * 4 + rows * 4 + rows * I * lp.n
+    d = kar_depth(params)
+    return rows * kp1 * lp.n * 4 + rows * 4 + rows * 3 ** d * I * (lp.n >> d)
 
 
 def random_inputs(params, rows: int, seed: int, device):
@@ -56,12 +60,14 @@ def random_inputs(params, rows: int, seed: int, device):
 
 
 def measure(params, rows: int, launches: int, seed: int = 5):
-    """One case: bit-exact against rotdec_ref, then warm and cold medians."""
+    """One case: bit-exact against its plain version, then warm and cold
+    medians."""
     from ..ops import blind_rotate as BR
     from ..utils.timing import time_fn
     acc, abar = random_inputs(params, rows, seed, "cuda")
-    if not torch.equal(BR.rotdec_cuda(acc, abar, params),
-                       BR.rotdec_ref(acc, abar, params)):
+    want = BR.leaf_operands(BR.rotdec_ref(acc, abar, params),
+                            BR.kar_depth(params))
+    if not torch.equal(BR.rotdec_cuda(acc, abar, params), want):
         raise AssertionError(f"rotdec kernel differs from rotdec_ref at "
                              f"{params.name}, {rows} rows")
     nbytes = rotdec_bytes(params, rows)

@@ -126,9 +126,42 @@
 // ptxas serialising wgmma where N = 64.
 // The int32 sums are exact while I*N*2^(dbits-1)*128 < 2^31 (2^24.6 at
 // tfhepp_128bit); cufhe_blind_rotate refuses any set where it is not.
-// Karatsuba leaves, a persistent kernel that keeps acc on chip across the
-// n0 steps, and TMA multicast of the dec tile across a cluster are later
-// work.
+//
+// Karatsuba leaves (depth D = 1 or 2; ops/blind_rotate.py:kar_depth, the
+// JAX kernel's rule, pallas_br.py:160-190): the negacyclic Toeplitz
+// operator of a key polynomial splits into 2x2 Toeplitz blocks [[A, T01],
+// [T10, A]], and three leaf products replace four: A (x_l + x_r) adds to
+// both output halves, (T01 - A) x_r to the first, (T10 - A) x_l to the
+// second. Each leaf's operator is again a Toeplitz operator of half the
+// size whose extended generator is a slice or difference of the parent's
+// (prepare_bk_ext builds the 3^D leaf generators in uint32 before the limb
+// split), so each leaf is the depth-0 product at LN = N >> D, and 3^D
+// leaves do (3/4)^D of its multiply-adds: 9/16 at D = 2. Every step is
+// linear mod 2^32: the result is the same uint32 words.
+//  - rotdec_kernel<L, ND, D> writes the leaf operands: dec [B, 3^D, I, LN],
+//    leaf v's row rr a sum of 1, 2 or 4 of the row's 2^D quarters
+//    (__vadd4 on packed digits; |digit| << D <= 128 keeps each in int8).
+//  - extprod_kernel<NL, SEG, D> reads dec as one [B, 3^D * I * LN]
+//    contraction whose stage s belongs to leaf s / S (S stages a leaf) and
+//    the key [I, k+1, NL, 3^D * 2LN] (leaf v's generator at 2LN v). A block
+//    owns 128 outputs (o, c < LN) of every leaf. At the end of each leaf (or
+//    of its range) a consumer folds its limb sums into uint32 and adds
+//    them to the 2^D quarters the leaf feeds, held per thread in shared
+//    memory (32 KB a quarter, beside the ring); after its range it adds
+//    each quarter it touched to acc with one red.global.add an output, as
+//    the depth-0 kernel does. Still two launches a step.
+//  - Where the contraction is split (small batches), ops/blind_rotate.py:
+//    extprod_plan cuts it into a multiple of 3^D ranges, so no range
+//    straddles two leaves.
+// On an H100 at tfhepp_128bit and B = 4096 (PERF.md) a launch takes 0.230
+// ms at D = 2, 0.291 ms at D = 1 and 0.349 ms at D = 0: against the 9/16
+// and 3/4 of the depth-0 time, the folds cost about two stages each, as
+// both consumer warpgroups reach a leaf's end together. Measured on the
+// way there: 4-byte quarter stores instead of 16-byte ones, 0.236 ms; the
+// next leaf's first wgmma overwriting the sums (scale-d 0) in place of
+// zeroing them in the fold, 0.245 ms.
+// A persistent kernel that keeps acc on chip across the n0 steps and TMA
+// multicast of the dec tile across a cluster are later work.
 #include <climits>
 #include <cstddef>
 #include <cstdint>
@@ -163,15 +196,42 @@ constexpr int kGroup = 32;                         // outputs of rows g (g+8)
 constexpr int kExtThreads = 128 * (kConsumers + 1);
 constexpr int kBTile = kRowTile * kStageK;         // dec bytes a stage
 constexpr int kAcc = kRowTile / 2;                 // int32 sums a thread, limb
+constexpr int kMaxKar = 2;                         // deepest Karatsuba tree
+constexpr int kMinLeaf = 128;                      // least leaf coefficients
 
-// The shape of extprod_kernel<NL, SEG>: NL key limbs, SEG = min(N, 128)
+__host__ __device__ constexpr int pow3(int d) {
+  return d == 0 ? 1 : 3 * pow3(d - 1);
+}
+
+// The output quarters (of 2^D) that leaf v of a depth-D Karatsuba tree adds
+// to, as a bit mask (pallas_br.py:_leaf_quarters). v's base-3 digits, the
+// first level's first, are 0: A (x_l + x_r), both halves; 1: T01 - A
+// (x_r), the first half; 2: T10 - A (x_l), the second half.
+__host__ __device__ constexpr uint32_t leaf_quarters(int v, int D) {
+  uint32_t qs = 1u;                                // {0} at the root
+  for (int p = D > 0 ? pow3(D - 1) : 0; p >= 1; p /= 3) {
+    const int digit = v / p % 3;
+    uint32_t next = 0u;
+    for (int q = 0; q < 16; ++q) {
+      if (!((qs >> q) & 1u)) continue;
+      if (digit != 2) next |= 1u << (2 * q);
+      if (digit != 1) next |= 1u << (2 * q + 1);
+    }
+    qs = next;
+  }
+  return qs;
+}
+
+// The shape of extprod_kernel<NL, SEG, D>: NL key limbs, SEG = min(LN, 128)
 // contraction bytes of one key row r in a stage, and as many outputs in a
-// run (outputs of one component o that share a key window). Shared memory
-// of one ring slot: the dec tile (1024-byte aligned for the swizzle), then
-// the key windows, each kWin bytes (SEG outputs x SEG contraction bytes:
-// [N + c0 - t0 - SEG, N + c0 - t0 + SEG) of ext) and 16 more that are read
-// but never used, in the order (seg * kRuns + run) * NL + li.
-template <int NL, int SEG>
+// run (outputs of one component o that share a key window), Karatsuba
+// depth D (LN = N >> D coefficients a leaf). Shared memory of one ring
+// slot: the dec tile (1024-byte aligned for the swizzle), then the key
+// windows, each kWin bytes (SEG outputs x SEG contraction bytes:
+// [LN + c0 - t0 - SEG, LN + c0 - t0 + SEG) of a leaf's ext) and 16 more
+// that are read but never used, in the order (seg * kRuns + run) * NL +
+// li. At D > 0 the consumers' quarter sums follow the barriers.
+template <int NL, int SEG, int D>
 struct Ext {
   static constexpr int kSegs = kStageK / SEG;      // key rows a stage
   static constexpr int kSegSteps = SEG / 32;       // k-steps a key row
@@ -182,10 +242,19 @@ struct Ext {
   static constexpr int kStageBytes =
       (kBTile + kWins * kWinStride + 1023) / 1024 * 1024;
   static constexpr int kRing = kStages * kStageBytes;
-  // ring, full and empty barriers, and room to align the ring to 1024 B
-  static constexpr int kSmem = kRing + 16 * kStages + 1024;
+  static constexpr int kLeaves = pow3(D);
+  static constexpr int kQuarters = 1 << D;
+  // uint32 sums of every consumer thread's outputs in each quarter
+  static constexpr int kQBytes =
+      D > 0 ? kQuarters * kAcc * 128 * kConsumers * 4 : 0;
+  // ring, full and empty barriers, the quarters, and room to align the
+  // ring to 1024 B
+  static constexpr int kSmem = kRing + 16 * kStages + kQBytes + 1024;
   static_assert(SEG == 32 || SEG == 64 || SEG == 128, "key rows a stage");
   static_assert(NL >= 1 && NL <= kLimbs, "limbs");
+  static_assert(D >= 0 && D <= kMaxKar, "Karatsuba depth");
+  static_assert(D == 0 || (SEG == kStageK && NL == kLimbs),
+                "leaves of at least 128 coefficients, exact keys");
   static_assert(kSmem <= 232448, "shared memory of one block");
 };
 
@@ -206,19 +275,82 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// dec [B, I, N] int8 for one step: the rows (b, j) of acc [B, kp1, N]
-// rotated by X^abar_i[b], minus themselves, offset and decomposed. Block x
-// owns rows x * rows .. x * rows + rows-1 of the nrows = B * kp1, with
-// rows = kRotThreads >> tpr_log and 1 << tpr_log threads a row, and holds
-// them in shared memory (rows * N * 4 bytes). L and ND are l and nd where
-// they are known at compile time (the published sets), 0 where not.
-template <int L, int ND>
+// The rotated row less itself and offset, at quad q (coefficients 4q ..
+// 4q+3) of a row of N = 4 (qmask + 1) words held in shared memory (s4):
+// temp[e] = (acc * X^abar)[4q + e] - acc[4q + e] + off. The rotated window
+// of quad q starts at word (4q - low) mod N: aligned quad (q - qlow) mod
+// N/4 shifted by sh = (-low) mod 4 words; hi and low are abar's sign bit
+// and its rest.
+__device__ __forceinline__ void rot_quad(const uint4* s4, int q, int qlow,
+                                         int qmask, int sh, uint32_t low,
+                                         bool hi, uint32_t off,
+                                         uint32_t (&temp)[4]) {
+  const uint4 own = s4[q];
+  const int a = (q - qlow) & qmask;
+  const uint4 w0 = s4[a];
+  const uint4 w1 = s4[(a + 1) & qmask];
+  const uint32_t w[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+  uint32_t v[6];
+#pragma unroll
+  for (int e = 0; e < 6; ++e) v[e] = (sh & 1) ? w[e + 1] : w[e];
+  const uint32_t mine[4] = {own.x, own.y, own.z, own.w};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const uint32_t x = (sh & 2) ? v[e + 2] : v[e];
+    const bool neg = (static_cast<uint32_t>(4 * q + e) < low) != hi;
+    temp[e] = (neg ? 0u - x : x) - mine[e] + off;
+  }
+}
+
+// Four int8 values in one word, the first in the low byte.
+__device__ __forceinline__ uint32_t pack4(const int (&part)[4]) {
+  const uint32_t lo = __byte_perm(part[0], part[1], 0x0040);
+  const uint32_t up = __byte_perm(part[2], part[3], 0x0040);
+  return __byte_perm(lo, up, 0x5410);
+}
+
+// The Karatsuba leaf operands of a depth-D tree from the packed digits of
+// the 2^D quarters p[0 .. 2^D) of a row, in leaf order (the first level's
+// A, T01 - A, T10 - A, each over the next level's): A takes the sum of the
+// two halves, T01 - A the second half, T10 - A the first. Byte-wise adds
+// that wrap: each sum fits int8 where |digit| << D <= 128.
+template <int D>
+struct Leaves {
+  static constexpr int kHalf = 1 << (D - 1);
+  static constexpr int kSub = pow3(D - 1);
+  __device__ __forceinline__ static void run(const uint32_t* p,
+                                             uint32_t* w) {
+    uint32_t sum[kHalf];
+#pragma unroll
+    for (int i = 0; i < kHalf; ++i) sum[i] = __vadd4(p[i], p[i + kHalf]);
+    Leaves<D - 1>::run(sum, w);
+    Leaves<D - 1>::run(p + kHalf, w + kSub);
+    Leaves<D - 1>::run(p, w + 2 * kSub);
+  }
+};
+
+template <>
+struct Leaves<0> {
+  __device__ __forceinline__ static void run(const uint32_t* p, uint32_t* w) {
+    w[0] = p[0];
+  }
+};
+
+// dec for one step: the rows (b, j) of acc [B, kp1, N] rotated by
+// X^abar_i[b], minus themselves, offset and decomposed: [B, I, N] int8 at
+// D = 0; at Karatsuba depth D > 0 the leaf operands [B, 3^D, I, N >> D].
+// Block x owns rows x * rows .. x * rows + rows-1 of the nrows = B * kp1,
+// with rows = kRotThreads >> tpr_log and 1 << tpr_log threads a row, and
+// holds them in shared memory (rows * N * 4 bytes). L and ND are l and nd
+// where they are known at compile time (the published sets), 0 where not.
+template <int L, int ND, int D>
 __global__ void __launch_bounds__(kRotThreads)
 rotdec_kernel(const uint32_t* __restrict__ acc,
               const int32_t* __restrict__ abar_i, int8_t* __restrict__ dec,
               int nrows, int nbit, int tpr_log, int kp1, int l_rt, int Bgbit,
               int nd_rt, int dbits, uint32_t off) {
   extern __shared__ __align__(16) uint32_t srow[];
+  constexpr int kLeaves = pow3(D);
   const int l = L ? L : l_rt;
   const int nd = ND ? ND : nd_rt;
   const int N = 1 << nbit;
@@ -249,75 +381,88 @@ rotdec_kernel(const uint32_t* __restrict__ acc,
   const uint32_t low = ab & static_cast<uint32_t>(N - 1);
   const bool hi = (ab >> nbit) & 1u;
   const uint4* s4 = reinterpret_cast<const uint4*>(srow + (rr << nbit));
-  // the rotated window of quad q starts at word (4q - low) mod N: aligned
-  // quad (q - ceil(low/4)) mod N/4 shifted by sh = (-low) mod 4 words
   const int sh = static_cast<int>((0u - low) & 3u);
   const int qlow = static_cast<int>((low + 3u) >> 2);
+  // a thread takes quad qq of each of the row's 2^D quarters and writes
+  // quad qq of every leaf; leaf v's rows lie I * LN bytes apart (at D = 0
+  // the one leaf is the row itself)
+  constexpr int kQ = 1 << D;
+  const int lq = (qmask + 1) >> D;  // quads of a leaf
+  const size_t vstride = static_cast<size_t>(kp1) * l * nd * lq;
   uint32_t* out = reinterpret_cast<uint32_t*>(
-      dec + (static_cast<size_t>(b) * kp1 * l * nd + j * l * nd) * N);
-  for (int q = lane; q <= qmask; q += 1 << tpr_log) {
-    const uint4 own = s4[q];
-    const int a = (q - qlow) & qmask;
-    const uint4 w0 = s4[a];
-    const uint4 w1 = s4[(a + 1) & qmask];
-    const uint32_t w[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-    uint32_t v[6];
+      dec + (static_cast<size_t>(b) * kLeaves * kp1 * l * nd + j * l * nd) *
+                (N >> D));
+  for (int qq = lane; qq < lq; qq += 1 << tpr_log) {
+    uint32_t temp[kQ][4];
 #pragma unroll
-    for (int e = 0; e < 6; ++e) v[e] = (sh & 1) ? w[e + 1] : w[e];
-    const uint32_t mine[4] = {own.x, own.y, own.z, own.w};
-    uint32_t temp[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const uint32_t x = (sh & 2) ? v[e + 2] : v[e];
-      const bool neg = (static_cast<uint32_t>(4 * q + e) < low) != hi;
-      temp[e] = (neg ? 0u - x : x) - mine[e] + off;
-    }
-    uint32_t* o = out + q;
+    for (int k = 0; k < kQ; ++k)
+      rot_quad(s4, qq + k * lq, qlow, qmask, sh, low, hi, off, temp[k]);
+    uint32_t* o = out + qq;
 #pragma unroll
     for (int d = 0; d < l; ++d) {
       const int shift = 32 - (d + 1) * Bgbit;
-      int dig[4];
+      int dig[kQ][4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        dig[e] = static_cast<int>((temp[e] >> shift) & mask) - half;
+      for (int k = 0; k < kQ; ++k)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dig[k][e] = static_cast<int>((temp[k][e] >> shift) & mask) - half;
 #pragma unroll
       for (int dl = 0; dl < nd; ++dl) {
-        int part[4];
+        uint32_t p[kQ];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          part[e] = dig[e];              // the last sub-digit takes the rest
-          if (dl < nd - 1) {
-            part[e] = ((dig[e] + dhalf) & dmask) - dhalf;
-            dig[e] = (dig[e] - part[e]) >> dbits;
+        for (int k = 0; k < kQ; ++k) {
+          int part[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            part[e] = dig[k][e];  // the last sub-digit takes the rest
+            if (dl < nd - 1) {
+              part[e] = ((dig[k][e] + dhalf) & dmask) - dhalf;
+              dig[k][e] = (dig[k][e] - part[e]) >> dbits;
+            }
           }
+          p[k] = pack4(part);
         }
-        const uint32_t lo = __byte_perm(part[0], part[1], 0x0040);
-        const uint32_t up = __byte_perm(part[2], part[3], 0x0040);
-        *o = __byte_perm(lo, up, 0x5410);
-        o += N >> 2;                     // the next digit row
+        uint32_t w[kLeaves];
+        Leaves<D>::run(p, w);
+#pragma unroll
+        for (int v = 0; v < kLeaves; ++v) o[v * vstride] = w[v];
+        o += lq;  // the next digit row
       }
     }
   }
 }
 
+using RotdecFn = void (*)(const uint32_t*, const int32_t*, int8_t*, int, int,
+                          int, int, int, int, int, int, uint32_t);
+
 // rotdec_kernel's launch shape for rows of N = 2^nbit coefficients.
 struct RotdecPlan {
-  void (*kernel)(const uint32_t*, const int32_t*, int8_t*, int, int, int,
-                 int, int, int, int, int, uint32_t);
+  RotdecFn kernel;
   int tpr_log;                                     // log2 threads per row
   int rows;                                        // rows per block
   int smem;                                        // bytes per block
 };
 
-// The plan for N = 2^nbit and (l, nd), with the kernel's shared memory
-// limit raised to it (once per C call, not per step).
-cudaError_t rotdec_plan(int nbit, int l, int nd, RotdecPlan* plan) {
-  plan->kernel = l == 3 && nd == 1   ? rotdec_kernel<3, 1>
-                 : l == 2 && nd == 1 ? rotdec_kernel<2, 1>
-                 : l == 3 && nd == 2 ? rotdec_kernel<3, 2>
-                 : l == 2 && nd == 2 ? rotdec_kernel<2, 2>
-                                     : rotdec_kernel<0, 0>;
-  int tpr_log = nbit - 2;                          // one thread per quad
+template <int D>
+RotdecFn rotdec_instance(int l, int nd) {
+  return l == 3 && nd == 1   ? rotdec_kernel<3, 1, D>
+         : l == 2 && nd == 1 ? rotdec_kernel<2, 1, D>
+         : l == 3 && nd == 2 ? rotdec_kernel<3, 2, D>
+         : l == 2 && nd == 2 ? rotdec_kernel<2, 2, D>
+                             : rotdec_kernel<0, 0, D>;
+}
+
+// The plan for N = 2^nbit, (l, nd) and Karatsuba depth D, with the
+// kernel's shared memory limit raised to it (once per C call, not per
+// step). A thread takes 2^D quads a leaf quad, at least kRotQuads in all
+// where the row is long enough.
+cudaError_t rotdec_plan(int nbit, int l, int nd, int depth,
+                        RotdecPlan* plan) {
+  plan->kernel = depth == 2   ? rotdec_instance<2>(l, nd)
+                 : depth == 1 ? rotdec_instance<1>(l, nd)
+                              : rotdec_instance<0>(l, nd);
+  int tpr_log = nbit - 2 - depth;                  // one thread a leaf quad
   while ((1 << tpr_log) > kRotThreads ||
          (tpr_log > 0 && (1 << (nbit - 2 - tpr_log)) < kRotQuads))
     --tpr_log;
@@ -399,19 +544,21 @@ __device__ __forceinline__ void red_add(uint32_t* p, uint32_t v) {
                : "memory");
 }
 
-// acc [B, kp1, N] += the external product of dec [B, I*N] (the tensor map
-// tma_dec) with the key of one step, bk_i [I, kp1, NL, 2N], whose limb li
-// is worth 2^(8(li + 4 - NL)). Block (x, y, z): outputs go = o*N + c in
+// acc [B, kp1, N] += the external product of dec (the tensor map tma_dec)
+// with the key of one step, bk_i, whose limb li is worth 2^(8(li + 4 -
+// NL)). At D = 0, dec is [B, I*N] and bk_i [I, kp1, NL, 2N]; at Karatsuba
+// depth D, LN = N >> D, dec is [B, 3^D * I*LN] (leaf-major) and bk_i
+// [I, kp1, NL, 3^D * 2LN]. Block (x, y, z): leaf outputs go = o*LN + c in
 // [128x, 128x + 128), batch rows [64y, 64y + 64), and range z of the
-// gridDim.z ranges of the step's T = ceil(I*N / 128) stages, [zT/Z,
-// (z+1)T/Z). Threads 0-255 are the consumer warpgroups, 256-383 the
-// producer warpgroup, of which one warp issues the copies.
-template <int NL, int SEG>
+// gridDim.z ranges of the step's T = 3^D * S stages (S = ceil(I*LN / 128)
+// a leaf), [zT/Z, (z+1)T/Z). Threads 0-255 are the consumer warpgroups,
+// 256-383 the producer warpgroup, of which one warp issues the copies.
+template <int NL, int SEG, int D>
 __global__ void __launch_bounds__(kExtThreads, 1)
 extprod_kernel(const __grid_constant__ CUtensorMap tma_dec,
                uint32_t* __restrict__ acc, const int8_t* __restrict__ bk_i,
                int B, int N, int kp1, int I) {
-  using E = Ext<NL, SEG>;
+  using E = Ext<NL, SEG, D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -420,8 +567,10 @@ extprod_kernel(const __grid_constant__ CUtensorMap tma_dec,
   const uint32_t empty0 = full0 + 8 * kStages;
   const int tid = threadIdx.x;
   const int wg = tid / 128;
-  const int KB = I * N;                            // contraction bytes
-  const int T = (KB + kStageK - 1) / kStageK;
+  const int LN = N >> D;                           // coefficients a leaf
+  const int KB = I * LN;                           // contraction bytes a leaf
+  const int S = (KB + kStageK - 1) / kStageK;      // stages a leaf
+  const int T = S * E::kLeaves;
   const int s0 = static_cast<int>(static_cast<long long>(blockIdx.z) * T /
                                   gridDim.z);    // the block's stages s0..s1-1
   const int s1 = static_cast<int>(
@@ -430,8 +579,8 @@ extprod_kernel(const __grid_constant__ CUtensorMap tma_dec,
   const int b0 = blockIdx.y * kRowTile;
   // the block's 32-output groups that exist (group 2*warpgroup + hi, see
   // the consumer) and its runs of SEG outputs that exist
-  const int groups = min(kOutTile / kGroup, (kp1 * N - go0) / kGroup);
-  const int runs = min(E::kRuns, (kp1 * N - go0) / SEG);
+  const int groups = min(kOutTile / kGroup, (kp1 * LN - go0) / kGroup);
+  const int runs = min(E::kRuns, (kp1 * LN - go0) / SEG);
 
   if (tid == 0) {
     for (int i = 0; i < kStages; ++i) {
@@ -452,8 +601,10 @@ extprod_kernel(const __grid_constant__ CUtensorMap tma_dec,
       for (int s = s0; s < s1; ++s) {
         const uint32_t sa = base + slot * E::kStageBytes;
         const uint32_t full = full0 + 8 * slot;
+        const int v = D > 0 ? s / S : 0;           // the stage's leaf
+        const int sv = s - v * S;                  // its stage in the leaf
         // key rows of the stage inside the contraction
-        const int segs = min(E::kSegs, (KB - s * kStageK + SEG - 1) / SEG);
+        const int segs = min(E::kSegs, (KB - sv * kStageK + SEG - 1) / SEG);
         mbar_wait(empty0 + 8 * slot, parity);
         if (lane == 0) {
           mbar_arrive_tx(full, kBTile + segs * runs * NL * E::kWin);
@@ -465,15 +616,17 @@ extprod_kernel(const __grid_constant__ CUtensorMap tma_dec,
           const int run = wi / NL % E::kRuns;
           const int seg = wi / NL / E::kRuns;
           if (seg >= segs || run >= runs) continue;
-          const int p = s * kStageK + seg * SEG;
-          const int r = p / N;
-          const int t0 = p - r * N;
+          const int p = sv * kStageK + seg * SEG;
+          const int r = p / LN;
+          const int t0 = p - r * LN;
           const int go = go0 + SEG * run;
-          const int o = go / N;
-          const int c0 = go - o * N;
+          const int o = go / LN;
+          const int c0 = go - o * LN;
           const int8_t* src =
-              bk_i + ((static_cast<size_t>(r) * kp1 + o) * NL + li) * 2 * N +
-              (N + c0 - t0 - SEG);
+              bk_i +
+              ((static_cast<size_t>(r) * kp1 + o) * NL + li) * E::kLeaves *
+                  2 * LN +
+              2 * LN * v + (LN + c0 - t0 - SEG);
           bulk_load(sa + kBTile + wi * E::kWinStride, src, E::kWin, full);
         }
         if (++slot == kStages) {
@@ -519,6 +672,14 @@ extprod_kernel(const __grid_constant__ CUtensorMap tma_dec,
     uint32_t frag[kStageK / 32][NL][4];
     int slot = 0;
     uint32_t parity = 0;
+    // D > 0: the uint32 sums of the thread's outputs in each quarter, four
+    // a 16-byte word, at [qd][e / 4][tid] (consecutive threads,
+    // consecutive words), and the quarters the range has written (the
+    // same for every thread)
+    constexpr int kQStride = 128 * kConsumers;
+    uint4* quarters = reinterpret_cast<uint4*>(
+        smem_raw + (base - raw) + E::kRing + 16 * kStages);
+    uint32_t touched = 0;
     for (int s = s0; s < s1; ++s) {
       mbar_wait(full0 + 8 * slot, parity);
       const uint32_t* win = reinterpret_cast<const uint32_t*>(
@@ -563,65 +724,138 @@ extprod_kernel(const __grid_constant__ CUtensorMap tma_dec,
         slot = 0;
         parity ^= 1;
       }
+      if constexpr (D > 0) {
+        if (s + 1 == s1 || (s + 1) % S == 0) {     // the leaf's last stage
+#pragma unroll
+          for (int li = 0; li < NL; ++li) reg_fence(sums[li]);
+          const uint32_t feeds = leaf_quarters(s / S, D);
+          uint4 u[kAcc / 4];
+#pragma unroll
+          for (int j = 0; j < kAcc / 4; ++j) {
+            uint32_t w[4];
+#pragma unroll
+            for (int x = 0; x < 4; ++x) {
+              w[x] = 0;
+#pragma unroll
+              for (int li = 0; li < NL; ++li) {
+                w[x] += static_cast<uint32_t>(sums[li][4 * j + x])
+                        << (kLimbBits * (li + kLimbs - NL));
+                sums[li][4 * j + x] = 0;
+              }
+            }
+            u[j] = make_uint4(w[0], w[1], w[2], w[3]);
+          }
+#pragma unroll
+          for (int qd = 0; qd < E::kQuarters; ++qd) {
+            if (!((feeds >> qd) & 1u)) continue;
+            uint4* qs = quarters + qd * (kAcc / 4) * kQStride + tid;
+            if ((touched >> qd) & 1u) {
+#pragma unroll
+              for (int j = 0; j < kAcc / 4; ++j) {
+                const uint4 o = qs[j * kQStride];
+                qs[j * kQStride] = make_uint4(o.x + u[j].x, o.y + u[j].y,
+                                              o.z + u[j].z, o.w + u[j].w);
+              }
+            } else {
+#pragma unroll
+              for (int j = 0; j < kAcc / 4; ++j) qs[j * kQStride] = u[j];
+            }
+          }
+          touched |= feeds;
+#pragma unroll
+          for (int li = 0; li < NL; ++li) reg_fence(sums[li]);
+        }
+      }
     }
 #pragma unroll
     for (int li = 0; li < NL; ++li) reg_fence(sums[li]);
 
-    // sums[li][4j + 2hi + x]: output 32*hi + 8*warp + g of the
-    // warpgroup's 64, batch row b0 + 8j + 2q + x
+    if constexpr (D > 0) {
+      // every quarter the range touched, added to acc once an output:
+      // element 2hi + x of quarters[qd][j] of this thread is output
+      // (o, qd*LN + c) with o*LN + c = go below, batch row b0 + 8j + 2q + x
 #pragma unroll
-    for (int hi = 0; hi < 2; ++hi) {
-      if (!(hi ? hi_ok : lo_ok)) continue;
-      const int go = go0 + kWgOut * wg + kGroup * hi + 8 * warp + g;
-      const int o = go / N;
-      uint32_t* out = acc + static_cast<size_t>(o) * N + (go - o * N);
+      for (int qd = 0; qd < E::kQuarters; ++qd) {
+        if (!((touched >> qd) & 1u)) continue;
+        const uint4* qs = quarters + qd * (kAcc / 4) * kQStride + tid;
+        uint32_t* out[2];
 #pragma unroll
-      for (int j = 0; j < kAcc / 4; ++j) {
+        for (int hi = 0; hi < 2; ++hi) {
+          const int go = go0 + kWgOut * wg + kGroup * hi + 8 * warp + g;
+          const int o = go / LN;
+          out[hi] = acc + static_cast<size_t>(o) * N + qd * LN + (go - o * LN);
+        }
 #pragma unroll
-        for (int x = 0; x < 2; ++x) {
-          const int b = b0 + 8 * j + 2 * q + x;
-          if (b >= B) continue;
-          uint32_t v = 0;
+        for (int j = 0; j < kAcc / 4; ++j) {
+          const uint4 w = qs[j * kQStride];
+          const uint32_t v[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
-          for (int li = 0; li < NL; ++li)
-            v += static_cast<uint32_t>(sums[li][4 * j + 2 * hi + x])
-                 << (kLimbBits * (li + kLimbs - NL));
-          red_add(out + static_cast<size_t>(b) * kp1 * N, v);
+          for (int hx = 0; hx < 4; ++hx) {
+            const int b = b0 + 8 * j + 2 * q + (hx & 1);
+            if (b >= B) continue;
+            red_add(out[hx >> 1] + static_cast<size_t>(b) * kp1 * N, v[hx]);
+          }
+        }
+      }
+    } else {
+      // sums[li][4j + 2hi + x]: output 32*hi + 8*warp + g of the
+      // warpgroup's 64, batch row b0 + 8j + 2q + x
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        if (!(hi ? hi_ok : lo_ok)) continue;
+        const int go = go0 + kWgOut * wg + kGroup * hi + 8 * warp + g;
+        const int o = go / N;
+        uint32_t* out = acc + static_cast<size_t>(o) * N + (go - o * N);
+#pragma unroll
+        for (int j = 0; j < kAcc / 4; ++j) {
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            const int b = b0 + 8 * j + 2 * q + x;
+            if (b >= B) continue;
+            uint32_t v = 0;
+#pragma unroll
+            for (int li = 0; li < NL; ++li)
+              v += static_cast<uint32_t>(sums[li][4 * j + 2 * hi + x])
+                   << (kLimbBits * (li + kLimbs - NL));
+            red_add(out + static_cast<size_t>(b) * kp1 * N, v);
+          }
         }
       }
     }
   }
 }
 
-// The n0 steps of one rotation through extprod_kernel<NL, SEG>, its
+// The n0 steps of one rotation through extprod_kernel<NL, SEG, D>, its
 // contraction cut into `split` ranges.
-template <int NL, int SEG>
+template <int NL, int SEG, int D>
 cudaError_t rotate(uint32_t* acc, const int32_t* abar, const int8_t* key,
                    int8_t* dec, int B, int n0, int N, int nbit, int kp1,
                    int l, int Bgbit, int nd, int dbits, uint32_t off,
                    int split, cudaStream_t s) {
-  using E = Ext<NL, SEG>;
+  using E = Ext<NL, SEG, D>;
   cudaError_t err = cudaFuncSetAttribute(
-      extprod_kernel<NL, SEG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      E::kSmem);
+      extprod_kernel<NL, SEG, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, E::kSmem);
   if (err != cudaSuccess) return err;
   RotdecPlan plan;
-  err = rotdec_plan(nbit, l, nd, &plan);
+  err = rotdec_plan(nbit, l, nd, D, &plan);
   if (err != cudaSuccess) return err;
   const int I = kp1 * l * nd;
+  const int LN = N >> D;
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   CUtensorMap map;                     // dec is the same buffer every step
-  if (!encode_rows(fn, &map, dec, B, I * N, kRowTile))
+  if (!encode_rows(fn, &map, dec, B, E::kLeaves * I * LN, kRowTile))
     return cudaErrorInvalidValue;
-  const size_t key_step = static_cast<size_t>(I) * kp1 * NL * 2 * N;
-  const dim3 grid((kp1 * N + kOutTile - 1) / kOutTile,
+  const size_t key_step =
+      static_cast<size_t>(I) * kp1 * NL * E::kLeaves * 2 * LN;
+  const dim3 grid((kp1 * LN + kOutTile - 1) / kOutTile,
                   (B + kRowTile - 1) / kRowTile, split);
   for (int i = 0; i < n0; ++i) {
     err = launch_rotdec(plan, acc, abar + static_cast<size_t>(i) * B, dec, B,
                         nbit, kp1, l, Bgbit, nd, dbits, off, s);
     if (err != cudaSuccess) return err;
-    extprod_kernel<NL, SEG><<<grid, kExtThreads, E::kSmem, s>>>(
+    extprod_kernel<NL, SEG, D><<<grid, kExtThreads, E::kSmem, s>>>(
         map, acc, key + i * key_step, B, N, kp1, I);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -637,34 +871,50 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+// Whether Karatsuba depth `depth` is exact for the set: 0 always; 1 or 2
+// with the exact key, leaves of at least kMinLeaf coefficients and leaf
+// operands, sums of 2^depth sub-digits of at most 2^(dbits-1), that fit
+// int8 (pallas_br.py:kar_depth's rule and its kernel's assertion).
+bool depth_ok(int depth, int nbit, int Bgbit, int dbits, int nlimbs) {
+  if (depth == 0) return true;
+  return depth >= 1 && depth <= kMaxKar && nlimbs == kLimbs &&
+         (1 << (nbit - depth)) >= kMinLeaf &&
+         ((1 << ((Bgbit < dbits ? Bgbit : dbits) - 1)) << depth) <= 128;
+}
+
 }  // namespace
 
 // One blind rotation of B accumulators, in place. acc [B, k+1, N] and
-// abar [n0, B] are int32 (torus values as uint32 bits), bk_ext is
-// [n0, I, k+1, nlimbs, 2N] int8 with I = (k+1)*l*nd, dec is scratch of
-// B*I*N bytes (bk_ext and dec 16-byte aligned). nlimbs is 4 (the exact
-// key) or 3 (pallas3, N >= 128); the product's instance follows from
-// nlimbs and N. split, 1 <= split <= ceil(I*N / 128), is the number of
-// contraction ranges, ops/blind_rotate.py:extprod_plan's choice. Enqueues 2*n0 kernels on `stream` and returns the
-// first launch error as a cudaError_t value (0 on success); it does not
-// wait.
-// Another nlimbs, a three-limb key at N < 128, sets whose limb sums could
-// leave int32 (I*N*2^(dbits-1)*128 >= 2^31), N < 32, N > 2^kRotMaxNbit,
-// another split and the other arguments args_ok refuses are refused with
-// cudaErrorInvalidValue.
+// abar [n0, B] are int32 (torus values as uint32 bits); at Karatsuba
+// depth D (`depth`, 0, 1 or 2) with LN = N >> D, bk_ext is
+// [n0, I, k+1, nlimbs, 3^D * 2LN] int8 with I = (k+1)*l*nd and dec is
+// scratch of B * 3^D * I * LN bytes (bk_ext and dec 16-byte aligned).
+// nlimbs is 4 (the exact key) or 3 (pallas3, N >= 128, D = 0); the
+// product's instance follows from nlimbs, N and D. split, 1 <= split <=
+// 3^D * ceil(I*LN / 128), is the number of contraction ranges,
+// ops/blind_rotate.py:extprod_plan's choice. Enqueues 2*n0 kernels on
+// `stream` and returns the first launch error as a cudaError_t value (0 on
+// success); it does not wait.
+// Another nlimbs, a three-limb key at N < 128, a depth depth_ok refuses,
+// sets whose limb sums could leave int32 (I*N*2^(dbits-1)*128 >= 2^31),
+// N < 32, N > 2^kRotMaxNbit, another split and the other arguments
+// args_ok refuses are refused with cudaErrorInvalidValue.
 extern "C" int cufhe_blind_rotate(void* acc, const void* abar,
                                   const void* bk_ext, void* dec, int B,
                                   int n0, int N, int nbit, int k, int l,
                                   int Bgbit, int nd, int dbits, int nlimbs,
-                                  unsigned int off_const, int split,
-                                  void* stream) {
-  if (n0 < 0 || !args_ok(acc, dec, B, N, nbit, k, l, Bgbit, nd, dbits))
+                                  int depth, unsigned int off_const,
+                                  int split, void* stream) {
+  if (n0 < 0 || !args_ok(acc, dec, B, N, nbit, k, l, Bgbit, nd, dbits) ||
+      !depth_ok(depth, nbit, Bgbit, dbits, nlimbs))
     return static_cast<int>(cudaErrorInvalidValue);
   const int kp1 = k + 1;
   const long long I = static_cast<long long>(kp1) * l * nd;
+  // a leaf's operand is 2^depth times larger and LN = N >> depth long
   if (I * N * (1LL << (dbits - 1)) * 128 >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long stages = (I * N + kStageK - 1) / kStageK;
+  const long long stages =
+      pow3(depth) * ((I * (N >> depth) + kStageK - 1) / kStageK);
   if (split < 1 || split > stages || split > 65535 || !aligned16(dec) ||
       !aligned16(bk_ext))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -674,28 +924,34 @@ extern "C" int cufhe_blind_rotate(void* acc, const void* abar,
   auto* dec_i8 = static_cast<int8_t*>(dec);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   RotateFn run = nullptr;
-  if (nlimbs == 4)
-    run = N >= 128 ? rotate<4, 128> : N == 64 ? rotate<4, 64> : rotate<4, 32>;
+  if (nlimbs == 4 && depth > 0)
+    run = depth == 2 ? rotate<4, 128, 2> : rotate<4, 128, 1>;
+  else if (nlimbs == 4)
+    run = N >= 128  ? rotate<4, 128, 0>
+          : N == 64 ? rotate<4, 64, 0>
+                    : rotate<4, 32, 0>;
   else if (nlimbs == 3 && N >= 128)
-    run = rotate<3, 128>;
+    run = rotate<3, 128, 0>;
   if (run == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(run(acc_u, abar_i, key, dec_i8, B, n0, N, nbit,
                               kp1, l, Bgbit, nd, dbits, off_const, split, s));
 }
 
-// One step's rotate-and-decompose alone: dec [B, I, N] int8 from acc
+// One step's rotate-and-decompose alone: dec [B, I, N] int8 at depth 0,
+// the leaf operands [B, 3^D, I, N >> D] at Karatsuba depth D, from acc
 // [B, k+1, N] and abar_i [B] int32, through the kernel cufhe_blind_rotate
 // launches once per step. Enqueues one kernel on `stream`; returns the
-// launch error (0 on success), cudaErrorInvalidValue for what args_ok
-// refuses.
+// launch error (0 on success), cudaErrorInvalidValue for what args_ok or
+// depth_ok refuses.
 extern "C" int cufhe_rotdec(const void* acc, const void* abar_i, void* dec,
                             int B, int N, int nbit, int k, int l, int Bgbit,
-                            int nd, int dbits, unsigned int off_const,
-                            void* stream) {
-  if (!args_ok(acc, dec, B, N, nbit, k, l, Bgbit, nd, dbits))
+                            int nd, int dbits, int depth,
+                            unsigned int off_const, void* stream) {
+  if (!args_ok(acc, dec, B, N, nbit, k, l, Bgbit, nd, dbits) ||
+      !depth_ok(depth, nbit, Bgbit, dbits, kLimbs))
     return static_cast<int>(cudaErrorInvalidValue);
   RotdecPlan plan;
-  cudaError_t err = rotdec_plan(nbit, l, nd, &plan);
+  cudaError_t err = rotdec_plan(nbit, l, nd, depth, &plan);
   if (err == cudaSuccess)
     err = launch_rotdec(plan, static_cast<const uint32_t*>(acc),
                         static_cast<const int32_t*>(abar_i),

@@ -26,10 +26,13 @@ class DeviceKeys:
     """Evaluation keys on one device. A field of a form the context does
     not use is an empty tensor.
 
-    bk_ext: [n0, I, k+1, L, 2N] int8, I = (k+1)*l*nd: the limbs of the
-        extended generators [-bk, bk] (blind_rotate.prepare_bk_ext), L = 4
-        for the exact path, 3 (the top three) for pallas3. The CUDA kernel
-        and the plain blind rotation both read it.
+    bk_ext: [n0, I, k+1, L, W] int8, I = (k+1)*l*nd: the limbs of the
+        extended generators [-bk, bk] (blind_rotate.prepare_bk_ext; W =
+        2N), or of their 3^d Karatsuba leaf generators at the depth
+        d = blind_rotate.kar_depth(params, L) (W = leaf_width(N, d)),
+        L = 4 for the exact path, 3 (the top three, d = 0) for pallas3.
+        Built on the device. The CUDA kernel and the plain blind rotation
+        both read it.
     ksk_limbs_sei: [NLIMBS, t*numbase*k*N, n0+1] int8 with contraction
         index (dig*numbase + m)*k*N + j, each component's rows permuted by
         the negacyclic reversal j -> (N - j) mod N, so
@@ -110,11 +113,13 @@ _EMPTY_DTYPES = {"bk_ext": torch.int8, "ksk_limbs_sei": torch.int8,
 
 
 def _build_form(ek: EvalKey, form: str, device) -> dict:
-    """The fields of one key form, converted on the host and uploaded."""
+    """The fields of one key form on `device`: the rotation's key uploaded
+    as uint32 and converted there, the others converted on the host and
+    uploaded."""
     p = ek.params
     if form in ("pallas", "pallas3"):
-        host = {"bk_ext": prepare_bk_ext(ek.bk, p,
-                                         3 if form == "pallas3" else NLIMBS)}
+        return {"bk_ext": prepare_bk_ext(
+            from_u32(ek.bk, device), p, 3 if form == "pallas3" else NLIMBS)}
     elif form == "ntt":
         fwd, shoup = prepare_bk_ntt(ek.bk, p)
         return {"bk_ntt": from_u32(fwd, device),

@@ -22,6 +22,8 @@ on; counts() is a snapshot of them, zero for a name never counted:
     blind_rotate          rotations launched through the CUDA kernels
     blind_rotate.limbs4   of them with the exact four-limb key
     blind_rotate.limbs3   of them with the three-limb (pallas3) key
+    blind_rotate.kar0/1/2 of them at each Karatsuba depth of the product
+                          (2 at tfhepp_128bit, 0 at concrete and pallas3)
     rotdec                rotate-and-decompose kernel launches (n0 per
                           rotation, one per rotdec_cuda call)
 """

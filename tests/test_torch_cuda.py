@@ -121,7 +121,8 @@ def test_cuda_rotdec_matches_ref(params, rows, cuda):
     acc, abar = RD.random_inputs(params, rows, 90, cuda)
     before = counts()["rotdec"]
     got = BR.rotdec(acc, abar, params)
-    want = BR.rotdec_ref(acc, abar, params)
+    want = BR.leaf_operands(BR.rotdec_ref(acc, abar, params),
+                            BR.kar_depth(params))
     torch.cuda.synchronize()
     assert counts()["rotdec"] == before + 1
     assert torch.equal(got, want)
@@ -131,7 +132,8 @@ def test_cuda_rotdec_matches_ref(params, rows, cuda):
 def test_cuda_rotdec_matches_ref_full_presets(params, cuda):
     acc, abar = RD.random_inputs(params, 257, 91, cuda)
     assert torch.equal(BR.rotdec_cuda(acc, abar, params),
-                       BR.rotdec_ref(acc, abar, params))
+                       BR.leaf_operands(BR.rotdec_ref(acc, abar, params),
+                                        BR.kar_depth(params)))
 
 
 def test_cuda_blind_rotate_counts_rotdec_launches(cuda):
@@ -158,7 +160,8 @@ def test_cuda_rotdec_holds_rows_to_32768_and_refuses_wider(cuda):
     held = _wide(15)
     acc, abar = RD.random_inputs(held, 3, 94, cuda)
     assert torch.equal(BR.rotdec_cuda(acc, abar, held),
-                       BR.rotdec_ref(acc, abar, held))
+                       BR.leaf_operands(BR.rotdec_ref(acc, abar, held),
+                                        BR.kar_depth(held)))
     wide = _wide(16)
     N = wide.lvl1.n
     acc = torch.zeros((1, 2, N), dtype=torch.int32, device=cuda)
@@ -168,8 +171,8 @@ def test_cuda_rotdec_holds_rows_to_32768_and_refuses_wider(cuda):
         BR.rotdec_cuda(acc, abar[0], wide)
     with pytest.raises(RuntimeError, match="invalid argument"):
         BR.blind_rotate_cuda(
-            acc, abar, torch.zeros((1, 2, 2, 4, 2 * N), dtype=torch.int8,
-                                   device=cuda), wide)
+            acc, abar, torch.zeros((1, 2, 2, 4, BR.leaf_width(
+                N, BR.kar_depth(wide))), dtype=torch.int8, device=cuda), wide)
     assert (counts()["rotdec"], counts()["blind_rotate"]) == before
 
 
@@ -366,14 +369,15 @@ def test_cuda_lvl1_gates_and_mux_match_golden(params, cuda):
                 [1 - v if negate else v for v in plain]
 
 
-def _random_bk_ext(params, seed, device):
+def _random_bk_ext(params, seed, device, nlimbs=4, depth=None):
     """The kernel's key layout of a random BK [n0, (k+1)l, k+1, N] (no key
-    generation: parity needs only the layout)."""
+    generation: parity needs only the layout), at `nlimbs` limbs and the
+    set's Karatsuba depth (or `depth`)."""
     lp = params.lvl1
-    bk = np.random.default_rng(seed).integers(
+    bk = from_u32(np.random.default_rng(seed).integers(
         0, 1 << 32, (params.n0, (lp.k + 1) * lp.l, lp.k + 1, lp.n),
-        dtype=np.uint64).astype(np.uint32)
-    return torch.from_numpy(BR.prepare_bk_ext(bk, params)).to(device)
+        dtype=np.uint64).astype(np.uint32), device)
+    return BR.prepare_bk_ext(bk, params, nlimbs, depth)
 
 
 @pytest.mark.parametrize("rows", [1, 8, 63, 65, 129])
@@ -397,11 +401,11 @@ def test_cuda_kernel_matches_ref_main_shape(nlimbs, cuda):
     """tfhepp_128bit at the main path's 4096 rows (one contraction
     range), both key precisions."""
     params = P.TFHEPP_128
-    bk_ext = _random_bk_ext(params, 140, cuda)[:, :, :, 4 - nlimbs:]
-    bk_ext = bk_ext.contiguous()
+    bk_ext = _random_bk_ext(params, 140, cuda, nlimbs)
     acc, abar = _random_inputs(params, 4096, 141, cuda)
     lp = params.lvl1
-    assert BR.extprod_plan(4096, lp.n, lp.k + 1, bk_ext.shape[1]) == 1
+    assert BR.extprod_plan(4096, lp.n, lp.k + 1, bk_ext.shape[1],
+                           depth=BR.kar_depth(params, nlimbs)) == 1
     got = BR.blind_rotate_cuda(acc, abar, bk_ext, params)
     assert torch.equal(got, BR.blind_rotate_ref(acc, abar, bk_ext, params))
 
@@ -416,16 +420,19 @@ def test_cuda_kernel_splits_the_contraction_at_one_row(params, cuda):
     lp = params.lvl1
     bk_ext = _random_bk_ext(params, 142, cuda)
     I = bk_ext.shape[1]
+    depth = BR.kar_depth(params)
     acc, abar = _random_inputs(params, 1, 143, cuda)
-    assert BR.extprod_plan(1, lp.n, lp.k + 1, I, BR._sms(acc.device)) > 1
+    assert BR.extprod_plan(1, lp.n, lp.k + 1, I, BR._sms(acc.device),
+                           depth) > 1
     want = BR.blind_rotate_ref(acc, abar, bk_ext, params)
     assert torch.equal(BR.blind_rotate_cuda(acc, abar, bk_ext, params), want)
     N, nbit, k, l, Bgbit, nd, dbits, off = BR._decomp_args(params)
     out = acc.clone()
-    dec = torch.empty((1, I, N), dtype=torch.int8, device=cuda)
+    dec = torch.empty((1, 3 ** depth * I * (N >> depth)), dtype=torch.int8,
+                      device=cuda)
     rc = load().cufhe_blind_rotate(
         out.data_ptr(), abar.data_ptr(), bk_ext.data_ptr(), dec.data_ptr(),
-        1, params.n0, N, nbit, k, l, Bgbit, nd, dbits, 4, off, 1,
+        1, params.n0, N, nbit, k, l, Bgbit, nd, dbits, 4, depth, off, 1,
         torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     assert rc == 0 and torch.equal(out, want)
@@ -633,8 +640,9 @@ def test_two_shard_mesh_on_one_card_equals_plain(cuda):
 
 def _random_bk_ext3(params, seed, device):
     """The three-limb (pallas3) layout of the random BK _random_bk_ext
-    draws from the same seed: limbs 1-3 of its four."""
-    return _random_bk_ext(params, seed, device)[:, :, :, 1:].contiguous()
+    draws from the same seed: limbs 1-3 of its four at depth 0."""
+    return _random_bk_ext(params, seed, device,
+                          depth=0)[:, :, :, 1:].contiguous()
 
 
 def _by_nlimbs():
@@ -692,17 +700,19 @@ def test_cuda_refuses_other_limb_counts(cuda):
     from cufhe_tpu_torch._build import load
     lib = load()
 
-    def call(params, nlimbs, rows=2, split=1):
+    def call(params, nlimbs, rows=2, split=1, depth=0):
         N, nbit, k, l, Bgbit, nd, dbits, off = BR._decomp_args(params)
         I = (k + 1) * l * nd
         acc, abar = _random_inputs(params, rows, 134, cuda)
-        bk = torch.zeros((params.n0, I, k + 1, max(nlimbs, 1), 2 * N),
+        bk = torch.zeros((params.n0, I, k + 1, max(nlimbs, 1),
+                          BR.leaf_width(N, depth)),
                          dtype=torch.int8, device=cuda)
-        dec = torch.empty((rows, I, N), dtype=torch.int8, device=cuda)
+        dec = torch.empty((rows, 3 ** depth * I * (N >> depth)),
+                          dtype=torch.int8, device=cuda)
         return lib.cufhe_blind_rotate(
             acc.data_ptr(), abar.data_ptr(), bk.data_ptr(), dec.data_ptr(),
-            rows, params.n0, N, nbit, k, l, Bgbit, nd, dbits, nlimbs, off,
-            split, torch.cuda.current_stream().cuda_stream)
+            rows, params.n0, N, nbit, k, l, Bgbit, nd, dbits, nlimbs, depth,
+            off, split, torch.cuda.current_stream().cuda_stream)
 
     for nlimbs in (0, 1, 2, 5, 8):
         assert call(P.PALLAS_TINY, nlimbs) == 1, nlimbs
@@ -713,6 +723,17 @@ def test_cuda_refuses_other_limb_counts(cuda):
     assert call(P.PALLAS_TINY, 4, split=4) == 0
     for split in (0, 5, -1):
         assert call(P.PALLAS_TINY, 4, split=split) == 1, split
+    # Karatsuba depth: 2 at PALLAS_KAR (leaves of 128), 9 x 4 stages; not
+    # with three limbs, not past 2, not with leaves under 128 or digits
+    # whose sums could leave int8 (Bgbit 8 at depth 1: 2 x 128)
+    assert call(P.PALLAS_KAR, 4, depth=2) == 0
+    assert call(P.PALLAS_KAR, 4, depth=2, split=36) == 0
+    assert call(P.PALLAS_KAR, 4, depth=2, split=37) == 1
+    assert call(P.PALLAS_KAR, 4, depth=1) == 0
+    assert call(P.PALLAS_KAR, 3, depth=2) == 1
+    assert call(P.PALLAS_KAR, 4, depth=3) == 1
+    assert call(P.PALLAS_TINY, 4, depth=1) == 1
+    assert call(P.CONCRETE, 4, depth=1) == 1
     torch.cuda.synchronize()
     bk2 = _random_bk_ext(P.PALLAS_TINY, 135, cuda)[:, :, :, 2:].contiguous()
     acc, abar = _random_inputs(P.PALLAS_TINY, 2, 136, cuda)
@@ -766,3 +787,110 @@ def test_timing_block_waits_for_the_card(cuda):
     done.record()
     assert block([y])[0] is y
     assert done.query()
+
+
+# -- Karatsuba leaves -------------------------------------------------------
+
+#: (set, its Karatsuba depth): depth 2 at Bgbit 6 and at the nd = 2 set,
+#: depth 1 at Bgbit 7
+KAR_SETS = [(P.TFHEPP_128, 2), (P.TFHEPP_80, 2), (P.CGGI19, 1)]
+
+
+@pytest.mark.parametrize("rows", [1, 63, 65, 4096])
+@pytest.mark.parametrize("params,depth", KAR_SETS,
+                         ids=[p.name for p, _ in KAR_SETS])
+def test_cuda_karatsuba_kernel_matches_ref(params, depth, rows, cuda):
+    """The leaf instances equal the plain leaf product and the depth-0
+    instance on the same key bit for bit; 1, 63 and 65 rows split the
+    contraction (the ranges cut leaves), 4096 does not."""
+    assert BR.kar_depth(params) == depth
+    lp = params.lvl1
+    bk_ext = _random_bk_ext(params, 150, cuda)
+    assert bk_ext.shape[-1] == BR.leaf_width(lp.n, depth)
+    acc, abar = _random_inputs(params, rows, 151, cuda)
+    split = BR.extprod_plan(rows, lp.n, lp.k + 1, bk_ext.shape[1],
+                            BR._sms(acc.device), depth)
+    assert (split > 1) == (rows < 4096)
+    before = counts()
+    got = BR.blind_rotate_cuda(acc, abar, bk_ext, params)
+    torch.cuda.synchronize()
+    after = counts()
+    assert after[f"blind_rotate.kar{depth}"] == \
+        before[f"blind_rotate.kar{depth}"] + 1
+    assert torch.equal(got, BR.blind_rotate_ref(acc, abar, bk_ext, params))
+    flat = _random_bk_ext(params, 150, cuda, depth=0)
+    assert torch.equal(got, BR._blind_rotate_cuda(acc, abar, flat, params, 0))
+
+
+@pytest.mark.parametrize("rows", [1, 8, 129])
+@pytest.mark.parametrize("params", [P.PALLAS_KAR, P.PALLAS_BG10_KAR],
+                         ids=lambda p: p.name)
+def test_cuda_karatsuba_kernel_matches_ref_tiny(params, rows, cuda):
+    """Depth 2 with leaves of 128 coefficients (one stage a key row)
+    against the CPU's plain leaf product too."""
+    bk_ext = _random_bk_ext(params, 152, cuda)
+    acc, abar = _random_inputs(params, rows, 153, cuda)
+    got = BR.blind_rotate_cuda(acc, abar, bk_ext, params)
+    assert torch.equal(got.cpu(), BR.blind_rotate_ref(
+        acc.cpu(), abar.cpu(), bk_ext.cpu(), params))
+
+
+@pytest.mark.parametrize("params", [P.TFHEPP_128, P.CGGI19, P.PALLAS_KAR],
+                         ids=lambda p: p.name)
+def test_cuda_rotdec_leaf_operands_reach_the_int8_edge(params, cuda):
+    """A row of acc = off/2 rotated by X^N (its negation) decomposes to
+    digits of -Bg/2 everywhere: the leaf sums reach -128 at depth 2 (four
+    digits of -32) and -128 at depth 1 (two of -64), as the plain model."""
+    depth = BR.kar_depth(params)
+    N, _, k, l, Bgbit, nd, _, off = BR._decomp_args(params)
+    acc = torch.full((5, k + 1, N), off // 2, dtype=torch.int64)
+    acc = from_u32(acc.numpy().astype(np.uint32), cuda)
+    abar = torch.full((5,), N, dtype=torch.int32, device=cuda)
+    got = BR.rotdec_cuda(acc, abar, params)
+    digits = BR.rotdec_ref(acc, abar, params)
+    assert int(digits.min()) == int(digits.max()) == -(1 << (Bgbit - 1))
+    assert torch.equal(got, BR.leaf_operands(digits, depth))
+    assert int(got.min()) == -128
+
+
+def test_cuda_depth_follows_the_set_and_the_counter_counts(cuda):
+    """tfhepp_128bit's exact key launches the depth-2 instance; concrete,
+    tfhepp_128bit_bg8 and every three-limb key the depth-0 one, whose dec
+    is [B, I, N] as before: blind_rotate.kar{d} counts each rotation once,
+    at its depth."""
+    def depths(params, nlimbs):
+        keys = _random_bk_ext(params, 154, cuda, nlimbs)
+        acc, abar = _random_inputs(params, 3, 155, cuda)
+        before = counts()
+        BR.blind_rotate_cuda(acc, abar, keys, params)
+        after = counts()
+        return [after[f"blind_rotate.kar{d}"] - before[f"blind_rotate.kar{d}"]
+                for d in range(3)]
+
+    assert depths(P.TFHEPP_128, 4) == [0, 0, 1]
+    assert depths(P.CGGI19, 4) == [0, 1, 0]
+    for params in (P.CONCRETE, P.TFHEPP_128_BG8):
+        assert depths(params, 4) == [1, 0, 0]
+    for params in (P.TFHEPP_128, P.TFHEPP_80, P.CONCRETE):
+        assert depths(params, 3) == [1, 0, 0]
+    acc, abar = RD.random_inputs(P.CONCRETE, 3, 156, cuda)
+    lp = P.CONCRETE.lvl1
+    assert tuple(BR.rotdec_cuda(acc, abar, P.CONCRETE).shape) == \
+        (3, (lp.k + 1) * lp.l, lp.n)
+
+
+@pytest.mark.parametrize("params,depth", [(P.TFHEPP_128, 0),
+                                          (P.TFHEPP_128, 1),
+                                          (P.CONCRETE, 1)],
+                         ids=["tfhepp_128bit-d0", "tfhepp_128bit-d1",
+                              "concrete-d1"])
+def test_cuda_refuses_a_key_at_another_depth(params, depth, cuda):
+    """The key's layout selects no depth: blind_rotate_cuda refuses a key
+    built at a depth other than kar_depth's with ValueError and launches
+    nothing."""
+    bk_ext = _random_bk_ext(params, 157, cuda, depth=depth)
+    acc, abar = _random_inputs(params, 2, 158, cuda)
+    before = counts()["blind_rotate"]
+    with pytest.raises(ValueError, match="want"):
+        BR.blind_rotate_cuda(acc, abar, bk_ext, params)
+    assert counts()["blind_rotate"] == before

@@ -3,7 +3,9 @@ the CPU (the kernel itself runs only on the card: tests/test_torch_cuda.py).
 
 extprod_plan's split, through the kernel's grid and range formulas, must
 cover every (output tile, limb, batch tile, contraction stage) of a step
-exactly once and keep the card's SMs busy. The fragment map is a
+exactly once and keep the card's SMs busy; at Karatsuba depth d > 0 every
+(output tile, batch tile, leaf, stage of the leaf), with each output
+quarter summing each of the leaves that feed it once. The fragment map is a
 NumPy model of what csrc/blind_rotate.cu's extprod_kernel does: the
 producer's key windows in shared memory (their order, offsets and bytes),
 then each consumer lane's four A registers per limb and 32-byte k-step,
@@ -62,15 +64,19 @@ def _digit_rows(kp1: int) -> int:
     return kp1 * 3
 
 
-def kernel_stages(N: int, I: int) -> int:
-    """extprod_kernel's T: the step's contraction stages."""
-    return (I * N + STAGE_K - 1) // STAGE_K
+def kernel_stages(N: int, I: int, depth: int = 0) -> int:
+    """extprod_kernel's T: the step's contraction stages, S a leaf times
+    3^depth leaves."""
+    LN = N >> depth
+    return (I * LN + STAGE_K - 1) // STAGE_K * 3 ** depth
 
 
-def kernel_tiles(B: int, N: int, kp1: int) -> tuple:
-    """The grid's x and y in rotate: output tiles, batch tiles."""
+def kernel_tiles(B: int, N: int, kp1: int, depth: int = 0) -> tuple:
+    """The grid's x and y in rotate: output tiles of a leaf, batch
+    tiles."""
     out_tile = CONSUMERS * WG_OUT
-    return ((kp1 * N + out_tile - 1) // out_tile,
+    LN = N >> depth
+    return ((kp1 * LN + out_tile - 1) // out_tile,
             (B + ROW_TILE - 1) // ROW_TILE)
 
 
@@ -85,10 +91,17 @@ def test_grid_and_range_formulas_are_the_kernels():
     """kernel_stages, kernel_tiles and kernel_ranges are the source's."""
     src = re.sub(r"\s+", " ", SOURCE.read_text())
     for text in (
-            "const int T = (KB + kStageK - 1) / kStageK;",
+            "const int LN = N >> D;",
+            "const int KB = I * LN;",
+            "const int S = (KB + kStageK - 1) / kStageK;",
+            "const int T = S * E::kLeaves;",
             "static_cast<long long>(blockIdx.z) * T / gridDim.z",
             "static_cast<long long>(blockIdx.z + 1) * T / gridDim.z",
-            "const dim3 grid((kp1 * N + kOutTile - 1) / kOutTile, "
+            "const int v = D > 0 ? s / S : 0;",
+            "leaf_quarters(s / S, D)",
+            "if (s + 1 == s1 || (s + 1) % S == 0) {",
+            "const int LN = N >> D; const EncodeTiled fn",
+            "const dim3 grid((kp1 * LN + kOutTile - 1) / kOutTile, "
             "(B + kRowTile - 1) / kRowTile, split);",
             "constexpr int kOutTile = kConsumers * kWgOut;"):
         assert text in src, text
@@ -130,6 +143,100 @@ def test_plan_fills_the_card_at_tfhepp_128bit(B):
     nx, ny = kernel_tiles(B, lp.n, lp.k + 1)
     assert nx * ny * split >= BR.H100_SMS
     assert (split > 1) == (B == 1)
+
+
+def quarters_model(v: int, depth: int) -> list:
+    """The output quarters leaf v feeds, from the Karatsuba identity:
+    [[A, T01], [T10, A]] (x_l, x_r) = (A(x_l + x_r) + (T01 - A) x_r,
+    A(x_l + x_r) + (T10 - A) x_l) at each level, leaf digits 0, 1, 2."""
+    if depth == 0:
+        return [0]
+    digit, rest = divmod(v, 3 ** (depth - 1))
+    halves = {0: (0, 1), 1: (0,), 2: (1,)}[digit]
+    sub = quarters_model(rest, depth - 1)
+    return sorted(h * 2 ** (depth - 1) + q for h in halves for q in sub)
+
+
+def test_leaf_quarters_are_the_kernels_and_the_models():
+    """ops.blind_rotate.leaf_quarters, the kernel's leaf_quarters (the
+    source's rule) and the model agree; every quarter is fed by 2^d
+    leaves, 4^d leaf-quarter pairs in all (the schoolbook's blocks)."""
+    src = re.sub(r"\s+", " ", SOURCE.read_text())
+    assert "if (digit != 2) next |= 1u << (2 * q);" in src
+    assert "if (digit != 1) next |= 1u << (2 * q + 1);" in src
+    for depth in range(3):
+        per_q = {}
+        for v in range(3 ** depth):
+            got = BR.leaf_quarters(v, depth)
+            assert got == quarters_model(v, depth)
+            for q in got:
+                per_q[q] = per_q.get(q, 0) + 1
+        assert per_q == {q: 2 ** depth for q in range(2 ** depth)}
+    # prefix order: the root's A first, feeding every quarter
+    assert BR.leaf_quarters(0, 2) == [0, 1, 2, 3]
+    assert [BR.leaf_quarters(v, 2) for v in range(1, 9)] == [
+        [0, 2], [1, 3], [0, 1], [0], [1], [2, 3], [2], [3]]
+
+
+@pytest.mark.parametrize("B", [1, 63, 64, 65, 4096])
+@pytest.mark.parametrize("kp1", [2, 3])
+@pytest.mark.parametrize("N,depth", [(256, 1), (512, 1), (512, 2),
+                                     (1024, 1), (1024, 2), (2048, 2)])
+def test_plan_covers_every_leaf_block_once(N, depth, kp1, B):
+    """At depth d the kernel's ranges cover every (output tile, batch
+    tile, leaf, stage of the leaf) once, and each output quarter of each
+    tile sums every stage of each leaf that feeds it exactly once across
+    the ranges (each range flushes the quarters it touched); a split
+    range lies inside one leaf."""
+    I = _digit_rows(kp1)
+    split = BR.extprod_plan(B, N, kp1, I, depth=depth)
+    stages = kernel_stages(N, I, depth)
+    S = stages // 3 ** depth
+    assert S * 3 ** depth == stages and 1 <= split <= stages
+    nx, ny = kernel_tiles(B, N, kp1, depth)
+    assert nx * STAGE_K == kp1 * (N >> depth)
+    ranges = kernel_ranges(stages, split)
+    assert all(lo < hi for lo, hi in ranges)
+    if split > 1:              # no range straddles two leaves
+        assert split % 3 ** depth == 0
+        assert all((lo // S) == (hi - 1) // S for lo, hi in ranges)
+    seen, fed = {}, {}
+    for lo, hi in ranges:
+        for s in range(lo, hi):
+            v, sv = divmod(s, S)
+            seen[v, sv] = seen.get((v, sv), 0) + 1
+            for q in BR.leaf_quarters(v, depth):
+                fed[q, v, sv] = fed.get((q, v, sv), 0) + 1
+    assert set(seen.values()) == {1} and len(seen) == stages
+    assert set(fed.values()) == {1}
+    assert len(fed) == 4 ** depth * S
+    if nx * ny >= BR.H100_SMS:
+        assert split == 1
+    else:              # the least waves x (stages a range + overhead)
+        def cost(z):
+            return (-(-nx * ny * z // BR.H100_SMS)
+                    * (-(-stages // z) + BR.EXTPROD_LEAF_BLOCK_OVERHEAD))
+        assert all(cost(split) <= cost(z)
+                   for z in [1, *range(3 ** depth, stages + 1, 3 ** depth)])
+
+
+@pytest.mark.parametrize("B,split_over_1", [(1, True), (64, True),
+                                            (4096, False)])
+def test_leaf_plan_at_tfhepp_128bit(B, split_over_1):
+    """Depth 2 at tfhepp_128bit: 4 output tiles (512 leaf outputs) x
+    ceil(B/64) batch tiles, each block 9 leaves x 12 stages; 4096 rows
+    fill the card with 256 blocks, 1 and 64 rows split the 108 stages
+    into 27 ranges of 4 (108 blocks, one wave)."""
+    params = P.TFHEPP_128
+    lp = params.lvl1
+    depth = BR.kar_depth(params)
+    I = (lp.k + 1) * lp.l
+    assert depth == 2 and kernel_stages(lp.n, I, depth) == 9 * 12
+    split = BR.extprod_plan(B, lp.n, lp.k + 1, I, depth=depth)
+    nx, ny = kernel_tiles(B, lp.n, lp.k + 1, depth)
+    assert (nx, ny) == (4, -(-B // 64))
+    assert (split > 1) == split_over_1
+    assert split == (27 if split_over_1 else 1)
 
 
 # -- the kernel's fragment map, as a model --------------------------------
@@ -243,13 +350,15 @@ def a_tiles(bk_i, N, kp1, I, x, s, fill=0x5A):
     return tiles
 
 
-def _random_bk_i(params, nlimbs, seed):
-    """One step of prepare_bk_ext on a random BK [1, (k+1)l, k+1, N]."""
+def _random_bk_i(params, nlimbs, seed, depth=0):
+    """One step of the key layout on a random BK [1, (k+1)l, k+1, N] at
+    Karatsuba depth `depth` (prepare_bk_ext's at the set's own depth)."""
     lp = params.lvl1
     bk = np.random.default_rng(seed).integers(
         0, 1 << 32, (1, (lp.k + 1) * lp.l, lp.k + 1, lp.n),
         dtype=np.uint64).astype(np.uint32)
-    return BR.prepare_bk_ext(bk, params, nlimbs)[0]
+    return BR.prepare_bk_ext(torch.from_numpy(bk.view(np.int32)), params,
+                             nlimbs, depth)[0].numpy()
 
 
 @pytest.mark.parametrize("params,nlimbs,blocks", [
@@ -265,8 +374,36 @@ def _random_bk_i(params, nlimbs, seed):
 def test_fragment_model_rebuilds_the_toeplitz_operator(params, nlimbs,
                                                       blocks):
     lp = params.lvl1
-    N, kp1 = lp.n, lp.k + 1
-    bk_i = _random_bk_i(params, nlimbs, 61)
+    _check_fragments(_random_bk_i(params, nlimbs, 61), lp.n, lp.k + 1,
+                     blocks)
+
+
+@pytest.mark.parametrize("params,leaves,blocks", [
+    (P.PALLAS_KAR, (0, 4, 8), None),            # leaves of 128
+    (P.TFHEPP_128, (0, 5, 7), ((0, 3), (3, 11))),   # leaves of 256
+], ids=lambda v: getattr(v, "name", str(v)))
+def test_fragment_model_rebuilds_each_leaf_operator(params, leaves, blocks):
+    """At Karatsuba depth 2 the producer reads leaf v's windows at
+    2 LN v of each key row of 3^d * 2 LN bytes; the consumer's fragments
+    of those windows are the leaf generator's Toeplitz operator, the
+    depth-0 map at N = LN."""
+    lp = params.lvl1
+    depth = BR.kar_depth(params)
+    LN = lp.n >> depth
+    bk_i = _random_bk_i(params, 4, 62, depth)
+    assert bk_i.shape[-1] == 3 ** depth * 2 * LN
+    src = re.sub(r"\s+", " ", SOURCE.read_text())
+    assert ("((static_cast<size_t>(r) * kp1 + o) * NL + li) * E::kLeaves "
+            "* 2 * LN + 2 * LN * v + (LN + c0 - t0 - SEG);") in src
+    for v in leaves:
+        leaf = np.ascontiguousarray(bk_i[..., 2 * LN * v:2 * LN * (v + 1)])
+        _check_fragments(leaf, LN, lp.k + 1, blocks)
+
+
+def _check_fragments(bk_i, N, kp1, blocks):
+    """The A tiles of a_tiles at blocks [(x, s)] (every block where None)
+    are the transposed Toeplitz operator of bk_i [I, kp1, NL, 2N], with
+    zero rows past kp1*N."""
     I = bk_i.shape[0]
     T = BR.toeplitz_operator(torch.from_numpy(bk_i)).numpy()
     if blocks is None:

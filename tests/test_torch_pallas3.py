@@ -72,8 +72,8 @@ def test_bk_ext_three_limbs_are_the_top_three(params):
     are the JAX prepare_wext(nlimbs=3) columns, limb for limb; the limbs
     recombine to each pre-scaled generator less its low balanced limb."""
     _, ek = _keys(params, 30)
-    ext3 = BR.prepare_bk_ext(ek.bk, params, 3)
-    ext4 = BR.prepare_bk_ext(ek.bk, params)
+    ext3 = BR.prepare_bk_ext(from_u32(ek.bk), params, 3).numpy()
+    ext4 = BR.prepare_bk_ext(from_u32(ek.bk), params).numpy()
     n0, I0, kp1, N = ek.bk.shape
     nd, dbits = decomp_digit_limb_plan(params.lvl1.Bgbit)
     I = I0 * nd
@@ -121,7 +121,7 @@ def test_plain_product_uses_each_pre_scaled_row():
     params = P.PALLAS_BG10
     _, ek = _keys(params, 70)
     nd, dbits = decomp_digit_limb_plan(params.lvl1.Bgbit)
-    ext3 = torch.from_numpy(BR.prepare_bk_ext(ek.bk, params, 3))
+    ext3 = BR.prepare_bk_ext(from_u32(ek.bk), params, 3)
     lim = [sum(ext3[0, dl::nd, :, li].long() << (8 * (li + 1))
                for li in range(3)) for dl in range(nd)]
     assert not torch.equal(lim[1] % (1 << 32), (lim[0] << dbits) % (1 << 32))
@@ -142,7 +142,7 @@ def test_four_limb_plain_version_equals_the_independent_forms(params):
     rng = np.random.default_rng(75)
     bk = rng.integers(0, 1 << 32, (2, (lp.k + 1) * lp.l, lp.k + 1, lp.n),
                       dtype=np.uint64).astype(np.uint32)
-    ext = torch.from_numpy(BR.prepare_bk_ext(bk, params))
+    ext = BR.prepare_bk_ext(from_u32(bk), params)
     half = 1 << (dbits - 1)
     dec = torch.from_numpy(rng.integers(
         -half, half, (3, (lp.k + 1) * lp.l * nd, lp.n)).astype(np.int8))
@@ -283,9 +283,9 @@ def test_pallas3_refused_below_n128(tiny_key):
     with pytest.raises(ValueError, match="N >= 128"):
         _quiet_context(ek)
     with pytest.raises(ValueError, match="N = 64"):
-        BR.prepare_bk_ext(ek.bk, ek.params, 3)
+        BR.prepare_bk_ext(from_u32(ek.bk), ek.params, 3)
     with pytest.raises(ValueError, match="4 limbs"):
-        BR.prepare_bk_ext(ek.bk, ek.params, 2)
+        BR.prepare_bk_ext(from_u32(ek.bk), ek.params, 2)
 
 
 @pytest.fixture(scope="module")

@@ -127,10 +127,12 @@ def test_blind_rotate_ref_steps_through_rotdec_ref(monkeypatch):
 
 def test_rotdec_bound_at_tfhepp_128():
     """One launch at batch 4096 reads 33.5 MB of acc (and 16 KB of abar)
-    and writes 25.2 MB of dec: 58.7 MB, 17.5 us at 3.35 TB/s."""
+    and writes the Karatsuba-2 leaf operands, 9 leaves of 6 rows of 256
+    bytes a row (56.6 MB, 2.25x the 25.2 MB of the digits): 90.2 MB,
+    26.9 us at 3.35 TB/s."""
     nbytes = RD.rotdec_bytes(P.TFHEPP_128, 4096)
-    assert nbytes == 4096 * 2 * 1024 * 4 + 4096 * 4 + 4096 * 6 * 1024
-    assert nbytes / RD.HBM_BYTES_PER_S * 1e6 == pytest.approx(17.533, abs=1e-3)
+    assert nbytes == 4096 * 2 * 1024 * 4 + 4096 * 4 + 4096 * 9 * 6 * 256
+    assert nbytes / RD.HBM_BYTES_PER_S * 1e6 == pytest.approx(26.924, abs=1e-3)
     # nd = 2 doubles the digit rows
     lp = P.PALLAS_BG10.lvl1
     assert RD.rotdec_bytes(P.PALLAS_BG10, 3) == \

@@ -36,27 +36,29 @@ def test_ptxas_report_names_registers_and_spills():
 
 
 def test_rotation_bound_at_tfhepp_128():
-    """One rotation at batch 4096: 636 steps of a 4096 x 6144 x 8192 int8
-    product, 132.5 ms at 1,979 dense int8 TOPS; its 140 MB of device
-    memory would take 0.04 ms."""
+    """One rotation at batch 4096, fhebench/roofline.py's count: 636 steps
+    of 9/16 of a 4096 x 6144 x 8192 int8 product (two levels of
+    Karatsuba), 74.5 ms at 1,979 dense int8 TOPS, as the benchmark's
+    roofline has it; its 109 MB of device memory would take 0.03 ms."""
     macs, nbytes = RT.rotation_work(P.TFHEPP_128, 4096)
-    assert macs == 4096 * 6144 * 8192 * 636
+    assert macs == 4096 * 6144 * 8192 * 636 * 9 / 16
     assert nbytes == 2 * 4096 * 2 * 1024 * 4 + 636 * 4096 * 4 \
-        + 636 * 6 * 2 * 4 * 2048
+        + 636 * 6 * 2 * 1024 * 4
     ms, by = RT.bound(2 * macs, nbytes)
-    assert by == "operations" and ms == pytest.approx(132.508, abs=1e-3)
+    assert by == "operations" and ms == pytest.approx(74.536, abs=1e-3)
     assert RT.bound(0, nbytes) == (pytest.approx(nbytes / 3.35e9), "bytes")
 
 
 @pytest.mark.parametrize("params", [P.PALLAS_BG10, P.TINY_K2],
                          ids=lambda p: p.name)
 def test_rotation_work_counts_sub_digit_rows_and_components(params):
-    """I = (k+1) * l * nd rows of the contraction, (k+1) * 4 * N columns."""
+    """(k+1) * l gadget digit rows, one int8 each whatever the sub-digits
+    (nd = 2 at Bgbit 10 adds none), (k+1) * 4 * N columns, 9/16 of the
+    schoolbook products: the benchmark's fixed count."""
     lp = params.lvl1
-    nd = 2 if lp.Bgbit > 8 else 1
     macs, _ = RT.rotation_work(params, 3)
-    assert macs == 3 * ((lp.k + 1) * lp.l * nd * lp.n) \
-        * ((lp.k + 1) * 4 * lp.n) * params.n0
+    assert macs == 3 * ((lp.k + 1) * lp.l * lp.n) \
+        * ((lp.k + 1) * 4 * lp.n) * params.n0 * 9 / 16
 
 
 _WGMMA_LOG = """\
@@ -119,14 +121,14 @@ def test_rotdec_bound_is_the_benchs_bound():
 
 def test_rotation_bound_at_three_limbs():
     """The pallas3 rotation contracts against three limbs: 3/4 of the
-    exact rotation's MACs, 99.4 ms at batch 4096, and a 46.9 MB key."""
+    exact rotation's MACs, 55.9 ms at batch 4096 on the same count, the
+    same bytes (the uint32 key)."""
     macs, nbytes = RT.rotation_work(P.TFHEPP_128, 4096, 3)
-    assert macs == 4096 * 6144 * 6144 * 636
+    assert macs == 4096 * 6144 * 6144 * 636 * 9 / 16
     assert 4 * macs == 3 * RT.rotation_work(P.TFHEPP_128, 4096)[0]
-    assert nbytes == 2 * 4096 * 2 * 1024 * 4 + 636 * 4096 * 4 \
-        + 636 * 6 * 2 * 3 * 2048
+    assert nbytes == RT.rotation_work(P.TFHEPP_128, 4096)[1]
     ms, by = RT.bound(2 * macs, nbytes)
-    assert by == "operations" and ms == pytest.approx(99.381, abs=1e-3)
+    assert by == "operations" and ms == pytest.approx(55.902, abs=1e-3)
 
 
 _SASS = """\
