@@ -20,8 +20,8 @@ Phases, each raising on failure:
      against the port's NumPy gate oracle golden.gate_lvl0, as uint32;
   5. the main path: encrypt -> a chain of lvl0 NANDs on device-resident
      outputs at batch 4096, tfhepp_128bit -> decrypt, with 0 decrypt
-     errors, one rotation launch per gate and n0 rotate-and-decompose
-     launches per gate; gates/s;
+     errors, one rotation launch, n0 rotate-and-decompose launches and
+     one key switch launch per gate; gates/s;
   6. one blind rotation at the main path's shape through the kernels and
      through the plain version: equal, and both timed with CUDA events;
      the kernels' int8 TMAC/s, their bound on the card, and one
@@ -29,7 +29,14 @@ Phases, each raising on failure:
      (the port never calls it); the rotate-and-decompose kernel alone at
      the main path's shape and at batch 1 (benchmarks.rotdec.measure: the
      median of ROTDEC_LAUNCHES launches, warm and after an L2 flush), its
-     GB/s and its bytes bound, and its plain version's time;
+     GB/s and its bytes bound, and its plain version's time; the key
+     switch kernel on the context's KSK at the main path's 4096 rows and
+     an AES step's 160, bit for bit against its plain version
+     (key_switch_ref), then alone at both row counts
+     (benchmarks.keyswitch.measure: held against the one-hot path of four
+     torch._int_mm calls, then the median of KS_LAUNCHES launches, warm
+     and after an L2 flush) beside its bound, its plain version and that
+     one-hot path as the library yardstick;
   7. both tensor-core probe kernels, wgmma (csrc/mxu_peak_wgmma.cu) and
      mma.sync (csrc/mxu_peak.cu), against their plain version, bit for
      bit: all four variants at the small shape, pure and place at the full
@@ -44,9 +51,9 @@ Phases, each raising on failure:
      (computed in worker processes while the card runs), one kernel
      launch per blind rotation; gates/s of the lvl1 NAND and the mux;
  10. one lvl0 NAND at batch 4096 under torch.profiler: device time and
-     launches of the product kernel, rotdec_kernel and the key switch, and
-     the device's idle share, with rotdec_kernel's time a launch against
-     its bound;
+     launches of the product kernel, rotdec_kernel and the key switch (one
+     keyswitch_kernel launch, no library GEMM), and the device's idle
+     share, with rotdec_kernel's time a launch against its bound;
  11. every other published preset (tfhepp_128bit_bg8, tfhepp_80bit,
      cggi19, concrete, radix4_2048; phase 3 holds the kernel against its
      plain version there): a lvl0 NAND at batch 4096 with 0 decrypt
@@ -107,11 +114,12 @@ Phases, each raising on failure:
      precisions timed in turns at the main path's shape
      (benchmarks/rotation.py); phase 5's chain on Context(ek, "pallas3") with 0 decrypt errors, the
      three-limb instance launched once a gate and the exact one never;
-     one pallas3 NAND under torch.profiler; the noise std and margins at
+     one pallas3 NAND under torch.profiler (one keyswitch_kernel launch,
+     no library GEMM); the noise std and margins at
      batch 2048 (benchmarks/noise.py) beside the JAX record.
 
-Prints the card line, a {"kernels": [...]} line (blind_rotate,
-blind_rotate_pallas3, rotdec, mxu_peak, mxu_peak_wgmma), and as the last
+Prints the card line, a {"kernels": [...]} line (blind_rotate, rotdec,
+key_switch, mxu_peak, mxu_peak_wgmma, blind_rotate_pallas3), and as the last
 line {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
 The client side (keygen, encrypt, decrypt) and the oracle are the port's
 NumPy module cufhe_tpu_torch.golden; neither JAX nor the JAX package is
@@ -135,6 +143,13 @@ REPLACES = "cufhe_tpu/ops/pallas_br.py:762"
 ROTDEC_REPLACES = "cufhe_tpu/ops/pallas_br.py:428"
 #: launches of rotdec_kernel timed alone (the median is reported)
 ROTDEC_LAUNCHES = 25
+KS_SOURCE = "cufhe_tpu_torch/csrc/keyswitch.cu"
+#: the JAX package's key switch, which XLA compiles (no TPU kernel)
+KS_REPLACES = "cufhe_tpu/ops/keyswitch.py:50"
+#: launches of keyswitch_kernel timed alone, and the rows of a median AES
+#: step beside the main path's BATCH
+KS_LAUNCHES = 25
+KS_AES_ROWS = 160
 #: the product kernel's instances, extprod_kernel<NL, SEG, D>: four limbs
 #: at N >= 128, 64 and 32; three limbs at N >= 128; four limbs at
 #: Karatsuba depths 1 and 2 (leaves of >= 128 coefficients)
@@ -1225,7 +1240,7 @@ def phase_full_width(ctx, sk, ek, pool, tag: str) -> None:
     }
     # the lvl1 key switch reads the one (sample-extract order) KSK
     # through a column gather: its cost, against no gather
-    ksk, perm = ctx.keys.ksk_limbs_sei, ctx.keys.sei_perm
+    ksk, perm = ctx.keys.ksk_tiles, ctx.keys.sei_perm
     _, ks_ms = cuda_ms(lambda: key_switch(a1.data, ksk, p, perm=perm), 5)
     _, plain_ms = cuda_ms(lambda: key_switch(a1.data, ksk, p), 5)
     log(f"lvl1 key switch at batch {BATCH}: {ks_ms:.3f} ms with the "
@@ -1358,7 +1373,7 @@ def phase_profile(ctx, sk, tag: str) -> None:
     tlwe1 = sample_extract_for_ks(acc, params.lvl1)
 
     ks, ks_busy, _ = profile_kernels(
-        lambda: key_switch(tlwe1, ctx.keys.ksk_limbs_sei, params))
+        lambda: key_switch(tlwe1, ctx.keys.ksk_tiles, params))
     per, busy, wall = profile_kernels(lambda: ctx.nand(a, b))
     if not per:
         raise AssertionError("torch.profiler recorded no device kernels")
@@ -1393,6 +1408,12 @@ def phase_profile(ctx, sk, tag: str) -> None:
         if groups[key][1] != n0:
             raise AssertionError(f"profile: {groups[key][1]} launches of "
                                  f"{key}, want {n0}")
+    ks_launches = sum(n for name, (_, n) in per.items()
+                      if "keyswitch_kernel" in name)
+    library = [name for name in per if "gemm" in name or "cutlass" in name]
+    if ks_launches != 1 or library:
+        raise AssertionError(f"profile: {ks_launches} keyswitch_kernel "
+                             f"launches (want 1), library kernels {library}")
 
 
 def sass_mma_counts(sass: str, opcode: str = "IMMA") -> dict:
@@ -1439,8 +1460,9 @@ def phase_pallas3(ek, sk, p5, tag: str) -> dict:
     every instance's IGMMA and IMMA counts; both key precisions timed in
     turns (benchmarks/rotation.py); a batch-4096 NAND chain on a pallas3
     Context on phase 5's inputs with its decrypt errors and launches (the
-    three-limb instance once a gate, the exact one never); one profiled
-    pallas3 NAND; the margins at batch 2048 (benchmarks/noise.py) beside
+    three-limb instance and the key switch once a gate, the exact instance
+    never); one profiled pallas3 NAND (one keyswitch_kernel launch, no
+    library GEMM); the margins at batch 2048 (benchmarks/noise.py) beside
     the JAX record. Returns the kernels line's blind_rotate_pallas3
     entry."""
     import warnings
@@ -1452,8 +1474,6 @@ def phase_pallas3(ek, sk, p5, tag: str) -> dict:
     from cufhe_tpu_torch.benchmarks import rotation as RT
     from cufhe_tpu_torch.benchmarks.noise import centered_phases, measure_noise
     from cufhe_tpu_torch.ops import blind_rotate as BR
-    from cufhe_tpu_torch.ops.keyswitch import key_switch
-    from cufhe_tpu_torch.ops.poly import sample_extract_for_ks
     from cufhe_tpu_torch.utils.spans import counts
 
     max_err, plain_ms = 0, None
@@ -1543,20 +1563,18 @@ def phase_pallas3(ek, sk, p5, tag: str) -> dict:
         f"phase distance of the first NAND to the exact one: std "
         f"2^{np.log2(max(diff.std(), 1)):.2f}, max "
         f"2^{np.log2(max(np.abs(diff).max(), 1)):.2f} {tag}")
-    if errors or launches != {3: gates, 4: 0}:
+    if (errors or launches != {3: gates, 4: 0}
+            or launched["key_switch"] != gates):
         raise AssertionError("the pallas3 main path failed its checks")
 
-    acc, _ = RT.random_rotation_inputs(T.TFHEPP_128, BATCH, 13, DEV)
-    tlwe1 = sample_extract_for_ks(acc, T.TFHEPP_128.lvl1)
-    ks, _, _ = profile_kernels(
-        lambda: key_switch(tlwe1, ctx3.keys.ksk_limbs_sei, ek.params))
     per, busy, wall = profile_kernels(lambda: ctx3.nand(a, b))
     groups = {"extprod_kernel (3 limbs)": [0.0, 0], "rotdec_kernel": [0.0, 0],
-              "key switch": [0.0, 0], "everything else": [0.0, 0]}
+              "keyswitch_kernel": [0.0, 0], "everything else": [0.0, 0]}
     for name, (ms, n) in per.items():
         key = ("extprod_kernel (3 limbs)" if "extprod_kernel" in name
                else "rotdec_kernel" if "rotdec_kernel" in name
-               else "key switch" if name in ks else "everything else")
+               else "keyswitch_kernel" if "keyswitch_kernel" in name
+               else "everything else")
         groups[key][0] += ms
         groups[key][1] += n
     log(f"profile, one pallas3 NAND at batch {BATCH}: host {wall:.1f} ms, "
@@ -1568,7 +1586,12 @@ def phase_pallas3(ek, sk, p5, tag: str) -> dict:
     if groups["extprod_kernel (3 limbs)"][1] != ek.params.n0:
         raise AssertionError("profile: the pallas3 NAND did not launch the "
                              "product once a step")
-    del ctx3, first, out, acc, tlwe1
+    library = [name for name in per if "gemm" in name or "cutlass" in name]
+    if groups["keyswitch_kernel"][1] != 1 or library:
+        raise AssertionError(f"profile: {groups['keyswitch_kernel'][1]} "
+                             f"keyswitch_kernel launches in the pallas3 NAND "
+                             f"(want 1), library kernels {library}")
+    del ctx3, first, out
 
     noise = measure_noise(T.TFHEPP_128, "pallas3", batch=2048, ek=ek, sk=sk)
     log(f"pallas3 noise at batch 2048: std 2^{noise['noise_std_log2']}, "
@@ -1604,12 +1627,15 @@ def main() -> int:
     from cufhe_tpu_torch import golden as G
     from cufhe_tpu_torch.bench import (card, expected_nand_chain,
                                        time_nand_chain)
+    from cufhe_tpu_torch.benchmarks import keyswitch as KSB
     from cufhe_tpu_torch.benchmarks import rotdec as RD
     from cufhe_tpu_torch.benchmarks.rotation import (
         bound, random_rotation_inputs, rotation_work)
     from cufhe_tpu_torch.models.integers import IntContext, encrypt_uint
     from cufhe_tpu_torch.ops import blind_rotate as BR
+    from cufhe_tpu_torch.ops import keyswitch as KS
     from cufhe_tpu_torch.ops.keys import prepare_keys
+    from cufhe_tpu_torch.ops.poly import sample_extract_for_ks
     from cufhe_tpu_torch.torus import to_u32
     from cufhe_tpu_torch.utils.spans import counts
 
@@ -1629,8 +1655,8 @@ def main() -> int:
         log(f"  {name}: {regs} registers, spills: {spills}")
         if not spills.startswith("0 bytes spill stores, 0 bytes spill loads"):
             raise AssertionError(f"{name} spills registers")
-    for want in ("extprod_kernel", "rotdec_kernel", "mxu_peak_kernel",
-                 "mxu_peak_wgmma_kernel"):
+    for want in ("extprod_kernel", "rotdec_kernel", "keyswitch_kernel",
+                 "mxu_peak_kernel", "mxu_peak_wgmma_kernel"):
         if not any(name.split("<")[0] == want for name, _, _ in report):
             raise AssertionError(f"no ptxas report for {want}")
     for want in EXTPROD_INSTANCES:
@@ -1713,16 +1739,18 @@ def main() -> int:
     bits = T.decrypt_bits(out, sk)
     launched = counts() - before
     launches, rotdec_launches = launched["blind_rotate"], launched["rotdec"]
+    ks_launches = launched["key_switch"]
     gates = 1 + ITERS * REPS
     errors = int(np.sum(bits != expected_nand_chain(bits0, bits1, gates)))
     dt = statistics.median(times)
     gate_rate = BATCH / dt
     log(f"main path: {gates} chained NANDs at batch {BATCH}, "
         f"{T.TFHEPP_128.name}: decrypt errors {errors}, kernel launches "
-        f"{launches} (rotdec_kernel {rotdec_launches}); {BATCH / dt:.2f} "
+        f"{launches} (rotdec_kernel {rotdec_launches}, keyswitch_kernel "
+        f"{ks_launches}); {BATCH / dt:.2f} "
         f"gates/s ({dt * 1e3:.1f} ms per batch, reps "
         f"{[round(t * 1e3, 1) for t in times]} ms) {tag}")
-    if (errors or launches != gates
+    if (errors or launches != gates or ks_launches != gates
             or rotdec_launches != gates * T.TFHEPP_128.n0):
         raise AssertionError("main path failed its checks")
     p5 = (bits0, bits1, a, b, first, out, gate_rate)
@@ -1773,6 +1801,33 @@ def main() -> int:
     log(f"rotdec_ref at B={BATCH}: {rotdec_plain_ms * 1e3:.1f} us (CUDA "
         f"events) {tag}")
     del acc, abar_i
+    # the key switch kernel on the context's KSK at the main path's rows
+    # and an AES step's, against its plain version; then alone (measure
+    # holds each case to the one-hot path first, on a random KSK)
+    ks_err = 0
+    for rows in (BATCH, KS_AES_ROWS):
+        acc, _ = random_rotation_inputs(T.TFHEPP_128, rows, 600 + rows, dev)
+        tlwe1 = sample_extract_for_ks(acc, T.TFHEPP_128.lvl1)
+        got = KS.key_switch_cuda(tlwe1, ctx.keys.ksk_tiles, T.TFHEPP_128)
+        want = KS.key_switch_ref(tlwe1, ctx.keys.ksk_tiles, T.TFHEPP_128)
+        err = u32_max_abs_err(got, want)
+        log(f"keyswitch_kernel vs plain at {rows} rows, "
+            f"{T.TFHEPP_128.name}, the context's KSK: max_abs_err {err}")
+        if err != 0:
+            raise AssertionError(f"keyswitch_kernel disagrees at {rows} rows")
+        ks_err = max(ks_err, err)
+        del acc, tlwe1, got, want
+    ksw = {rows: KSB.measure(T.TFHEPP_128, rows, KS_LAUNCHES)
+           for rows in (BATCH, KS_AES_ROWS)}
+    for rows, rec in ksw.items():
+        log(f"keyswitch_kernel at B={rows}, {T.TFHEPP_128.name} (row tile "
+            f"{rec['row_tile']}, split {rec['split']}): median of "
+            f"{KS_LAUNCHES} launches {rec['warm_ms'] * 1e3:.2f} us, after an "
+            f"L2 flush {rec['cold_ms'] * 1e3:.2f} us; bound "
+            f"{rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']}), "
+            f"{100 * rec['warm_share_of_bound']:.1f} % of it; plain "
+            f"{rec['plain_ms']:.3f} ms, the one-hot path of four "
+            f"torch._int_mm {rec['library_ms']:.3f} ms (CUDA events) {tag}")
 
     # 7. the tensor-core probe; 8. and 9. the bootstrapping paths
     seconds = {"1-6": time.perf_counter() - started}
@@ -1845,6 +1900,18 @@ def main() -> int:
          "plain_ms": rotdec_plain_ms, "bound_ms": rotdec[BATCH]["bound_ms"],
          "bound_by": "bytes", "library_ms": None,
          "ms_cold": rotdec[BATCH]["cold_ms"], "ms_batch1": rotdec[1]["warm_ms"]},
+        {"name": "key_switch", "route": "cuda", "instruction": "wgmma",
+         "source": KS_SOURCE, "replaces": KS_REPLACES,
+         "launches": ks_launches, "max_abs_err": ks_err,
+         "ms": ksw[BATCH]["warm_ms"], "plain_ms": ksw[BATCH]["plain_ms"],
+         "bound_ms": ksw[BATCH]["bound_ms"],
+         "bound_by": ksw[BATCH]["bound_by"],
+         "library_ms": ksw[BATCH]["library_ms"],
+         "ms_cold": ksw[BATCH]["cold_ms"],
+         "ms_aes_rows": ksw[KS_AES_ROWS]["warm_ms"],
+         "plain_ms_aes_rows": ksw[KS_AES_ROWS]["plain_ms"],
+         "bound_ms_aes_rows": ksw[KS_AES_ROWS]["bound_ms"],
+         "library_ms_aes_rows": ksw[KS_AES_ROWS]["library_ms"]},
         {"name": "mxu_peak", "route": "cuda", "source": PROBE_SOURCE,
          "replaces": PROBE_REPLACES, **probe["mma_sync"]},
         {"name": "mxu_peak_wgmma", "route": "cuda", "source": WGMMA_SOURCE,

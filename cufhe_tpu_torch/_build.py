@@ -118,6 +118,12 @@ def load() -> ctypes.CDLL:
             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
             + [ctypes.c_uint, ctypes.c_void_p])
         lib.cufhe_rotdec.restype = ctypes.c_int
+        lib.cufhe_key_switch.argtypes = (
+            [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p,
+                                     ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_int] * 5 + [ctypes.c_uint] + [ctypes.c_int] * 2
+            + [ctypes.c_void_p])
+        lib.cufhe_key_switch.restype = ctypes.c_int
         lib.cufhe_mxu_peak.argtypes = (
             [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
             + [ctypes.c_void_p])

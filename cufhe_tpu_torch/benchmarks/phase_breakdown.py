@@ -51,7 +51,7 @@ def blind_rotate_only(a, b, keys, params, backend="auto"):
 def extract_ks_only(acc, keys, params):
     """Sample extraction in key-switch form and the key switch to lvl0."""
     return key_switch(sample_extract_for_ks(acc, params.lvl1),
-                      keys.ksk_limbs_sei, params)
+                      keys.ksk_tiles, params)
 
 
 def ks_decompose_only(tlwe1, params):

@@ -249,7 +249,7 @@ def section_kernels(run: Run) -> None:
     d1 = p.lvl1.k * p.lvl1.n
     tl = from_u32(run.rng.integers(0, 1 << 32, (run.batch, d1 + 1),
                                    dtype=np.uint64).astype(np.uint32), dev)
-    dt = time_fn(key_switch, tl, keys.ksk_limbs_sei, p, iters=run.iters,
+    dt = time_fn(key_switch, tl, keys.ksk_tiles, p, iters=run.iters,
                  device=dev)
     run.report("kernels", "keyswitch", dt, run.batch, 0)
 

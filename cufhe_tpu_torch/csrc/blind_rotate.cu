@@ -266,15 +266,6 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
 // The rotated row less itself and offset, at quad q (coefficients 4q ..
 // 4q+3) of a row of N = 4 (qmask + 1) words held in shared memory (s4):
 // temp[e] = (acc * X^abar)[4q + e] - acc[4q + e] + off. The rotated window

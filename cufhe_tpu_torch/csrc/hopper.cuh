@@ -1,9 +1,9 @@
 // Building blocks of the port's Hopper kernels (sm_90a): mbarriers, TMA
-// and bulk copies into shared memory, wgmma's fences and shared-memory
-// descriptor, and the tensor-map encoder reached through the runtime's
-// driver entry point (so no library links -lcuda). Included by
-// blind_rotate.cu and mxu_peak_wgmma.cu; everything is in an anonymous
-// namespace, one copy per source.
+// and bulk copies into shared memory, cp.async groups, wgmma's fences and
+// shared-memory descriptor, and the tensor-map encoder reached through the
+// runtime's driver entry point (so no library links -lcuda). Included by
+// blind_rotate.cu, keyswitch.cu and mxu_peak_wgmma.cu; everything is in an
+// anonymous namespace, one copy per source.
 #pragma once
 
 #include <cstdint>
@@ -69,6 +69,17 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       "[%0], [%1], %2, [%3];\n"
       :: "r"(dst), "l"(src), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N committed cp.async groups of this thread are still
+// in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // wgmma's shared-memory descriptor of a K-major tile of 128-byte rows in

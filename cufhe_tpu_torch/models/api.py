@@ -188,7 +188,7 @@ class Context:
         if form == "pallas3":
             _warn_pallas3()
         forms = {form}
-        if not self.keys.ksk_limbs_sei.numel():
+        if not self.keys.ksk_tiles.numel():
             forms.add("ksk")
         self.keys = dataclasses.replace(
             self.keys, **K.prepare_fields(ek, forms, self.device))

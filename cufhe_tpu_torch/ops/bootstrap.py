@@ -189,9 +189,9 @@ def blind_rotate_ntt(acc: torch.Tensor, abar: torch.Tensor, keys: DeviceKeys,
 def _key_switch_lvl1(x: torch.Tensor, keys: DeviceKeys, params: GateParams,
                      pre=None) -> torch.Tensor:
     """Key switch of natural-order lvl1 ciphertexts [B, k*N+1] through the
-    one KSK kept (ksk_limbs_sei): the mask columns are gathered by the
+    one KSK kept (ksk_tiles): the mask columns are gathered by the
     involution sei_perm after the pre-add."""
-    return key_switch(x, keys.ksk_limbs_sei, params, pre=pre,
+    return key_switch(x, keys.ksk_tiles, params, pre=pre,
                       perm=keys.sei_perm)
 
 
@@ -209,7 +209,7 @@ def gate_lvl0(gate_consts, in0: torch.Tensor, in1: torch.Tensor,
         acc = blind_rotate(a, b, params.lvl1.mu, keys, params, backend)
         # the extraction's index reversal lives in the KSK row permutation
         tlwe1 = sample_extract_for_ks(acc, params.lvl1)
-        return key_switch(tlwe1, keys.ksk_limbs_sei, params)
+        return key_switch(tlwe1, keys.ksk_tiles, params)
 
 
 def gate_lvl1(gate_consts, in0: torch.Tensor, in1: torch.Tensor,
@@ -243,7 +243,7 @@ def mux_lvl0(inc, in1, in0, keys: DeviceKeys, params: GateParams,
             acc = -acc
         acc[:, params.lvl1.k, 0] += i32(-mu1 if negate else mu1)
         tlwe1 = sample_extract_for_ks(acc, params.lvl1)
-        return key_switch(tlwe1, keys.ksk_limbs_sei, params)
+        return key_switch(tlwe1, keys.ksk_tiles, params)
 
 
 def mux_lvl1(inc, in1, in0, keys: DeviceKeys, params: GateParams,
@@ -312,7 +312,7 @@ def sei_and_ks(trlwe: torch.Tensor, keys: DeviceKeys,
                params: GateParams) -> torch.Tensor:
     """Sample extraction of coefficient 0 and key switch to lvl0."""
     return key_switch(sample_extract_for_ks(trlwe, params.lvl1),
-                      keys.ksk_limbs_sei, params)
+                      keys.ksk_tiles, params)
 
 
 def pbs_tlwe2trlwe(tlwe0: torch.Tensor, tv: torch.Tensor, keys: DeviceKeys,
@@ -357,5 +357,5 @@ def pbs_many(tlwe0: torch.Tensor, tv: torch.Tensor, J: int, keys: DeviceKeys,
                                                   device=acc.device), lp)
                     for j in range(1, J)]
     out = key_switch(sample_extract_for_ks(torch.cat(rots), lp),
-                     keys.ksk_limbs_sei, params)
+                     keys.ksk_tiles, params)
     return out.reshape(J, B, n0 + 1)

@@ -18,6 +18,7 @@ from ..params import GateParams
 from ..torus import from_u32
 from . import ntt as NTT
 from .blind_rotate import prepare_bk_ext
+from .keyswitch import ksk_tiles
 from .limbs import NLIMBS, u32_to_signed_limbs
 
 
@@ -33,30 +34,32 @@ class DeviceKeys:
         L = 4 for the exact path, 3 (the top three, d = 0) for pallas3.
         Built on the device. The CUDA kernel and the plain blind rotation
         both read it.
-    ksk_limbs_sei: [NLIMBS, t*numbase*k*N, n0+1] int8 with contraction
-        index (dig*numbase + m)*k*N + j, each component's rows permuted by
-        the negacyclic reversal j -> (N - j) mod N, so
+    ksk_tiles: [ceil((n0+1)/64), S, NLIMBS, 64, 128] int8, the KSK in
+        the key switch kernel's layout (keyswitch.ksk_tiles of
+        ksk_limbs_sei()): the input coefficients j permuted by the
+        negacyclic reversal j -> (N - j) mod N within each component, so
         key_switch(poly.sample_extract_for_ks(acc)) equals the key switch
-        of the true extraction.
+        of the true extraction. The kernel and the plain key switch both
+        read it; it is the one KSK on the device.
     sei_perm: [k*N] int64, that permutation (sei_perm()). It is an
         involution, so the one KSK also serves key switches of natural-order
         inputs (lvl1 ciphertexts): key_switch(x, natural KSK) equals
         key_switch(x with its first k*N columns gathered by sei_perm,
-        ksk_limbs_sei). No second, natural-order KSK is kept (41.7 MB at
+        ksk_tiles). No second, natural-order KSK is kept (41.9 MB at
         tfhepp_128bit).
     bk_ntt, bk_ntt_shoup: [n0, (k+1)l, k+1, N] int32 holding uint32 bits:
         the key lifted to Z_p and transformed (ntt.ntt_forward_host), and
         the Shoup companions of its values, read by the `ntt` path.
     """
     bk_ext: torch.Tensor
-    ksk_limbs_sei: torch.Tensor
+    ksk_tiles: torch.Tensor
     sei_perm: torch.Tensor
     bk_ntt: torch.Tensor
     bk_ntt_shoup: torch.Tensor
 
     @property
     def device(self) -> torch.device:
-        return self.ksk_limbs_sei.device
+        return self.ksk_tiles.device
 
 
 def sei_perm(params: GateParams) -> np.ndarray:
@@ -69,7 +72,8 @@ def sei_perm(params: GateParams) -> np.ndarray:
 
 def ksk_limbs_sei(ksk: np.ndarray, params: GateParams) -> np.ndarray:
     """KSK [d1, t, numbase, n0+1] uint32 -> [NLIMBS, K, n0+1] int8 in the
-    (dig, m, j) row order with the sample-extract permutation."""
+    (dig, m, j) row order with the sample-extract permutation: the layout
+    keyswitch.key_switch_onehot reads and keyswitch.ksk_tiles re-lays."""
     d1, t, nb, cols = ksk.shape
     kl = u32_to_signed_limbs(ksk[sei_perm(params)])  # [d1, t, nb, n0+1, L]
     return np.transpose(kl, (4, 1, 2, 0, 3)).reshape(NLIMBS, t * nb * d1, cols)
@@ -105,17 +109,17 @@ def prepare_trgsw(trgsw: np.ndarray, params: GateParams,
 KEY_FORMS = {"pallas": ("bk_ext",),
              "pallas3": ("bk_ext",),
              "ntt": ("bk_ntt", "bk_ntt_shoup"),
-             "ksk": ("ksk_limbs_sei", "sei_perm")}
+             "ksk": ("ksk_tiles", "sei_perm")}
 
-_EMPTY_DTYPES = {"bk_ext": torch.int8, "ksk_limbs_sei": torch.int8,
+_EMPTY_DTYPES = {"bk_ext": torch.int8, "ksk_tiles": torch.int8,
                  "sei_perm": torch.int64, "bk_ntt": torch.int32,
                  "bk_ntt_shoup": torch.int32}
 
 
 def _build_form(ek: EvalKey, form: str, device) -> dict:
     """The fields of one key form on `device`: the rotation's key uploaded
-    as uint32 and converted there, the others converted on the host and
-    uploaded."""
+    as uint32 and converted there, the KSK's limbs uploaded and laid out
+    there, the others converted on the host and uploaded."""
     p = ek.params
     if form in ("pallas", "pallas3"):
         return {"bk_ext": prepare_bk_ext(
@@ -125,12 +129,10 @@ def _build_form(ek: EvalKey, form: str, device) -> dict:
         return {"bk_ntt": from_u32(fwd, device),
                 "bk_ntt_shoup": from_u32(shoup, device)}
     elif form == "ksk":
-        host = {"ksk_limbs_sei": ksk_limbs_sei(ek.ksk, p),
-                "sei_perm": sei_perm(p)}
-    else:
-        raise ValueError(f"unknown key form {form!r}")
-    return {n: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for n, v in host.items()}
+        limbs = torch.from_numpy(ksk_limbs_sei(ek.ksk, p)).to(device)
+        return {"ksk_tiles": ksk_tiles(limbs, p),
+                "sei_perm": torch.from_numpy(sei_perm(p)).to(device)}
+    raise ValueError(f"unknown key form {form!r}")
 
 
 def prepare_fields(ek: EvalKey, forms, device="cuda") -> dict:

@@ -155,8 +155,8 @@ def sample_extract_for_ks(acc: torch.Tensor, p: TrlweParams) -> torch.Tensor:
         c[j, 0] = a[j, 0],  c[j, i] = -a[j, i]  (i >= 1)
 
     The negacyclic index reversal of the true extraction lives in the KSK
-    rows (keys.prepare_keys builds ksk_limbs_sei), so
-    key_switch(sample_extract_for_ks(acc), ksk_limbs_sei) equals
+    rows (keys.prepare_keys builds ksk_tiles), so
+    key_switch(sample_extract_for_ks(acc), ksk_tiles) equals
     key_switch(sample_extract_index0(acc), natural-order KSK).
     """
     B, _, N = acc.shape

@@ -26,6 +26,9 @@ on; counts() is a snapshot of them, zero for a name never counted:
                           (2 at tfhepp_128bit, 0 at concrete and pallas3)
     rotdec                rotate-and-decompose kernel launches (n0 per
                           rotation, one per rotdec_cuda call)
+    key_switch            key switch kernel launches (one a key switch on
+                          CUDA: a lvl0 gate or mux 1, a lvl1 gate 1, a lvl1
+                          mux 2; ops.keyswitch.key_switch_cuda)
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
 """cufhe_tpu_torch on a CUDA device: the blind-rotation kernels (at the tiny
 presets and at every full preset; the rotate-and-decompose kernel also
-alone, and its refusal of rows wider than shared memory holds) and both
-tensor-core probe kernels (wgmma and mma.sync) against their plain
+alone, and its refusal of rows wider than shared memory holds), the key
+switch kernel at every preset, and both tensor-core probe kernels (wgmma and mma.sync) against their plain
 PyTorch versions; the gates and mux at both levels against the port's
 golden model; the executor against its CPU run; gates chained across CUDA
 streams against the default stream; and the key lifecycle's device
@@ -27,6 +27,7 @@ from cufhe_tpu_torch.benchmarks import rotdec as RD
 from cufhe_tpu_torch.models.gates import TWO_INPUT
 from cufhe_tpu_torch.ops import blind_rotate as BR
 from cufhe_tpu_torch.ops import keys as TK
+from cufhe_tpu_torch.ops import keyswitch as KS
 from cufhe_tpu_torch.runtime import (Stream, build_ripple_adder,
                                      run_schedule, synchronize)
 from cufhe_tpu_torch.runtime import executor as EX
@@ -499,7 +500,7 @@ def test_release_keys_frees_the_key_memory(cuda):
     b = encrypt_bits([0, 0, 1, 1], sk, rng)
     before = ctx.nand(a, b)
     key_bytes = sum(t.numel() * t.element_size() for t in
-                    (ctx.keys.bk_ext, ctx.keys.ksk_limbs_sei,
+                    (ctx.keys.bk_ext, ctx.keys.ksk_tiles,
                      ctx.keys.sei_perm))
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
@@ -894,3 +895,110 @@ def test_cuda_refuses_a_key_at_another_depth(params, depth, cuda):
     with pytest.raises(ValueError, match="want"):
         BR.blind_rotate_cuda(acc, abar, bk_ext, params)
     assert counts()["blind_rotate"] == before
+
+
+def _random_ksk(params, seed, device):
+    """A random KSK in both layouts on `device`: the limbs
+    [4, t*nb*d1, n0+1] int8 key_switch_onehot reads, and ksk_tiles of
+    them. The kernel's arithmetic needs no real key."""
+    kp = params.ks
+    rng = np.random.default_rng(seed)
+    limbs = torch.from_numpy(rng.integers(
+        -128, 128, (4, kp.t * kp.numbase * params.lvl1.k * params.lvl1.n,
+                    params.lvl0.dim + 1), dtype=np.int8)).to(device)
+    return limbs, KS.ksk_tiles(limbs, params)
+
+
+def _random_tlwe1(params, rows, seed, device):
+    rng = np.random.default_rng(seed)
+    d1 = params.lvl1.k * params.lvl1.n
+    x = rng.integers(0, 1 << 32, (rows, d1 + 1), dtype=np.uint64)
+    x[:1] = 0                        # every digit at its offset
+    x[1:2] = (1 << 32) - 1
+    return from_u32(x.astype(np.uint32), device)
+
+
+@pytest.mark.parametrize("rows", [1, 7, 17, 48, 160, 480, 1024, 4096])
+@pytest.mark.parametrize("params", list(P.PRESETS.values()),
+                         ids=lambda p: p.name)
+def test_cuda_key_switch_matches_onehot(params, rows, cuda):
+    """keyswitch_kernel bit for bit against the one-hot path at every
+    preset (t*numbase 8 to 28, basebit 3 at TINY_Q) and at row counts
+    that take both row tiles and every kind of split, one launch each."""
+    limbs, tiles = _random_ksk(params, 160, cuda)
+    x = _random_tlwe1(params, rows, 161, cuda)
+    before = counts()["key_switch"]
+    got = KS.key_switch(x, tiles, params)
+    want = KS.key_switch_onehot(x, limbs, params)
+    torch.cuda.synchronize()
+    assert counts()["key_switch"] == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("rows", [17, 160])
+@pytest.mark.parametrize("params", [P.TFHEPP_128, P.CONCRETE, P.TINY_Q],
+                         ids=lambda p: p.name)
+def test_cuda_key_switch_pre_add_and_perm(params, rows, cuda):
+    """The pre-add (int and per-row constants) and the sei_perm gather in
+    front of the kernel, against the one-hot path and the CPU's plain
+    version of the kernel."""
+    limbs, tiles = _random_ksk(params, 162, cuda)
+    x = _random_tlwe1(params, rows, 163, cuda)
+    y = _random_tlwe1(params, rows, 164, cuda)
+    perm = torch.from_numpy(TK.sei_perm(params)).to(cuda)
+    per_row = torch.arange(rows, dtype=torch.int32, device=cuda) - 7
+    for pre in (None, (1, -1, 1 << 29, y), (per_row, 1, -per_row, y)):
+        for pm in (None, perm):
+            got = KS.key_switch(x, tiles, params, pre, pm)
+            assert torch.equal(got, KS.key_switch_onehot(x, limbs, params,
+                                                         pre, pm))
+            cpu = lambda v: v.cpu() if isinstance(v, torch.Tensor) else v
+            ref = KS.key_switch(x.cpu(), tiles.cpu(), params,
+                                None if pre is None else tuple(map(cpu, pre)),
+                                None if pm is None else pm.cpu())
+            assert torch.equal(got.cpu(), ref)
+
+
+def test_cuda_gates_launch_one_key_switch_and_no_int_mm(cuda, monkeypatch):
+    """One keyswitch_kernel launch a lvl0 NAND, two a lvl1 mux; nothing on
+    the card's gate path reaches torch._int_mm."""
+    sk, ek = _keys(P.TINY, 165)
+    rng = np.random.default_rng(166)
+    ctx = Context(ek, device=cuda)
+    a0, b0, c0 = (encrypt_bits(v, sk, rng, device=cuda)
+                  for v in ([0, 1, 0, 1], [0, 0, 1, 1], [0, 1, 1, 0]))
+    a1, b1, c1 = (encrypt_bits(v, sk, rng, device=cuda, level=1)
+                  for v in ([0, 1, 0, 1], [0, 0, 1, 1], [0, 1, 1, 0]))
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("torch._int_mm called on the card's gate path")
+
+    monkeypatch.setattr(torch, "_int_mm", refuse)
+    for fn, launches, want in (
+            (lambda: ctx.nand(a0, b0), 1, [1, 1, 1, 0]),
+            (lambda: ctx.mux(c1, a1, b1), 2, [0, 1, 0, 1]),
+            (lambda: ctx.mux(c0, a0, b0), 1, [0, 1, 0, 1])):
+        before = counts()
+        out = fn()
+        torch.cuda.synchronize()
+        assert counts()["key_switch"] - before["key_switch"] == launches
+        assert decrypt_bits(out, sk).tolist() == want
+
+
+def test_cuda_key_switch_rejects_bad_inputs(cuda):
+    params = P.TINY
+    limbs, tiles = _random_ksk(params, 167, cuda)
+    x = _random_tlwe1(params, 4, 168, cuda)
+    with pytest.raises(ValueError, match="want"):
+        KS.key_switch_cuda(x, tiles[:, :3], params)
+    with pytest.raises(ValueError, match="CUDA device"):
+        KS.key_switch_cuda(x, tiles.cpu(), params)
+    # basebit 4 (eight KSK rows a digit) has digits that straddle the
+    # kernel's 4-byte words: the C entry refuses it and launches nothing
+    wide = P.GateParams(name="basebit4", lvl0=params.lvl0, lvl1=params.lvl1,
+                        ks=P.KeySwitchParams(t=4, basebit=4))
+    _, wtiles = _random_ksk(wide, 169, cuda)
+    before = counts()["key_switch"]
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        KS.key_switch_cuda(x, wtiles, wide)
+    assert counts()["key_switch"] == before

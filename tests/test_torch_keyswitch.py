@@ -1,5 +1,8 @@
-"""cufhe_tpu_torch key switch and its KSK layout against cufhe_tpu (JAX) and
-the NumPy golden model, as uint32 equality."""
+"""cufhe_tpu_torch key switch and its KSK layouts against cufhe_tpu (JAX) and
+the NumPy golden model, as uint32 equality: the one-hot path in the JAX
+package's layout, the kernel's layout (ksk_tiles) and the plain version of
+the kernel (key_switch_ref), and a NumPy model of how the kernel builds its
+coefficient words."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -10,14 +13,18 @@ from cufhe_tpu import params as P
 from cufhe_tpu.ops import keys as JK
 from cufhe_tpu.ops import keyswitch as JKS
 from cufhe_tpu.ops import poly as JP
+from cufhe_tpu_torch import params as TP_
 from cufhe_tpu_torch.ops import keys as TK
 from cufhe_tpu_torch.ops import keyswitch as TKS
 from cufhe_tpu_torch.ops import poly as TP
 from cufhe_tpu_torch.torus import from_u32, to_u32
 
+#: TINY and TINY_K2, a PALLAS_* set, and TINY_Q, whose key switch has
+#: basebit 3 (four KSK rows a digit, 28 coefficient bytes an input)
+KS_SETS = [P.TINY, P.TINY_K2, P.PALLAS_TINY, P.TINY_Q]
 
-@pytest.fixture(scope="module", params=[P.TINY, P.TINY_K2],
-                ids=lambda p: p.name)
+
+@pytest.fixture(scope="module", params=KS_SETS, ids=lambda p: p.name)
 def setup(request):
     params = request.param
     sk = G.keygen(params, seed=40)
@@ -34,13 +41,48 @@ def _tlwe1(params, seed, rows=6):
                         dtype=np.uint64).astype(np.uint32)
 
 
+def _ks_params(t, basebit):
+    """A small set whose only interest is its key switch shape."""
+    return TP_.GateParams(name=f"ks-t{t}-b{basebit}", lvl0=TP_.LweParams(n=8),
+                          lvl1=TP_.TrlweParams(nbit=5, k=1, l=2, Bgbit=6),
+                          ks=TP_.KeySwitchParams(t=t, basebit=basebit))
+
+
 def test_ksk_layout_matches_jax(setup):
     params, ek, jkeys, tkeys = setup
     n0 = params.lvl0.dim
     want = np.asarray(jkeys.ksk_limbs_sei.astype(jnp.float32)).astype(np.int8)
-    got = tkeys.ksk_limbs_sei.numpy()
+    got = TK.ksk_limbs_sei(ek.ksk, params)
     assert got.dtype == np.int8 and got.shape[2] == n0 + 1
     assert np.array_equal(got, want)
+    assert torch.equal(tkeys.ksk_tiles,
+                       TKS.ksk_tiles(torch.from_numpy(got), params))
+
+
+@pytest.mark.parametrize("params", [TP_.TINY, TP_.TINY_K2, TP_.TINY_Q,
+                                    TP_.CONCRETE, _ks_params(13, 1)],
+                         ids=lambda p: p.name)
+def test_ksk_tiles_against_ksk_limbs_sei(params):
+    """Every byte of the kernel's layout: limb l, row (dig*nb + m)*d1 + j,
+    column c of ksk_limbs_sei at [c // 64, s, l, c % 64, (j - sJ) P +
+    dig*nb + m], s = j // J; zero everywhere else."""
+    kp = params.ks
+    t, nb = kp.t, kp.numbase
+    d1, cols = params.lvl1.k * params.lvl1.n, params.lvl0.dim + 1
+    P_, J, S, Mt = TKS.ks_layout(params)
+    assert P_ % 4 == 0 and t * nb <= P_ < t * nb + 4 and J * P_ <= 128
+    rng = np.random.default_rng(7)
+    limbs = rng.integers(-128, 128, (4, t * nb * d1, cols), dtype=np.int8)
+    got = TKS.ksk_tiles(torch.from_numpy(limbs), params).numpy()
+    assert got.shape == (Mt, S, 4, 64, 128)
+    l, dig, m, j, c = np.meshgrid(np.arange(4), np.arange(t), np.arange(nb),
+                                  np.arange(d1), np.arange(cols),
+                                  indexing="ij")
+    at = (c // 64, j // J, l, c % 64, (j % J) * P_ + dig * nb + m)
+    assert np.array_equal(got[at], limbs[l, (dig * nb + m) * d1 + j, c])
+    mask = np.zeros(got.shape, dtype=bool)
+    mask[at] = True
+    assert not got[~mask].any()
 
 
 def test_ks_decompose_coeffs(setup):
@@ -60,7 +102,7 @@ def test_key_switch_after_extraction(setup):
     acc = rng.integers(0, 1 << 32, (5, lp.k + 1, lp.n),
                        dtype=np.uint64).astype(np.uint32)
     tl = TP.sample_extract_for_ks(from_u32(acc), lp)
-    got = to_u32(TKS.key_switch(tl, tkeys.ksk_limbs_sei, params))
+    got = to_u32(TKS.key_switch(tl, tkeys.ksk_tiles, params))
     want_jax = np.asarray(JKS.key_switch(
         JP.sample_extract_for_ks(jnp.asarray(acc), lp), jkeys.ksk_limbs_sei,
         params))
@@ -68,6 +110,9 @@ def test_key_switch_after_extraction(setup):
     want = np.stack([G.key_switch(G.sample_extract_index0(a, lp), ek)
                      for a in acc])
     assert np.array_equal(got, want)
+    limbs = torch.from_numpy(TK.ksk_limbs_sei(ek.ksk, params))
+    assert np.array_equal(to_u32(TKS.key_switch_onehot(tl, limbs, params)),
+                          want)
 
 
 def test_key_switch_fused_pre_add(setup):
@@ -79,9 +124,11 @@ def test_key_switch_fused_pre_add(setup):
     perm = np.arange(lp.k * lp.n).reshape(lp.k, lp.n)
     perm = np.concatenate([perm[:, :1], perm[:, :0:-1]], axis=1).reshape(-1)
     inv = np.argsort(perm)
-    ksk_nat = torch.from_numpy(TK.ksk_limbs_sei(ek.ksk[inv], params))
-    got = to_u32(TKS.key_switch(from_u32(x), ksk_nat, params,
-                                pre=(ca, cb, off, from_u32(y))))
+    limbs_nat = torch.from_numpy(TK.ksk_limbs_sei(ek.ksk[inv], params))
+    pre = (ca, cb, off, from_u32(y))
+    got = to_u32(TKS.key_switch(from_u32(x),
+                                TKS.ksk_tiles(limbs_nat, params), params,
+                                pre=pre))
     want_jax = np.asarray(JKS.key_switch(
         jnp.asarray(x), jkeys.ksk_limbs, params,
         pre=(np.uint32(ca), np.uint32(cb), np.uint32(off), jnp.asarray(y))))
@@ -89,3 +136,128 @@ def test_key_switch_fused_pre_add(setup):
     want = np.stack([G.key_switch(a, ek, pre=(ca, cb, off, b))
                      for a, b in zip(x, y)])
     assert np.array_equal(got, want)
+    assert np.array_equal(to_u32(TKS.key_switch_onehot(
+        from_u32(x), limbs_nat, params, pre=pre)), want)
+
+
+@pytest.mark.parametrize("rows", [1, 7, 17])
+def test_key_switch_ref_equals_onehot(setup, rows):
+    """The plain version of the kernel, in its layout and contraction
+    order, against the one-hot path in the JAX package's layout: with and
+    without the pre-add (int and per-row constants) and the sei_perm
+    gather, at ragged row counts."""
+    params, ek, _, tkeys = setup
+    limbs = torch.from_numpy(TK.ksk_limbs_sei(ek.ksk, params))
+    x, y = from_u32(_tlwe1(params, 5, rows)), from_u32(_tlwe1(params, 6, rows))
+    per_row = torch.full((rows,), -5, dtype=torch.int32)
+    for pre in (None, (1, -1, 12345, y), (per_row, 1, per_row, y)):
+        for perm in (None, tkeys.sei_perm):
+            got = TKS.key_switch_ref(x, tkeys.ksk_tiles, params, pre, perm)
+            assert torch.equal(got, TKS.key_switch_onehot(
+                x, limbs, params, pre, perm))
+            assert torch.equal(got, TKS.key_switch(
+                x, tkeys.ksk_tiles, params, pre, perm))
+
+
+def _digit_word(idx, basebit):
+    """csrc/keyswitch.cu:digit_word."""
+    nb = 1 << (basebit - 1)
+    spw = 4 // nb
+    w = 0
+    for e in range(spw):
+        val = ((idx >> ((spw - 1 - e) * basebit))
+               & ((1 << basebit) - 1)) - nb
+        if val < 0:
+            w |= 1 << (8 * (nb * e - val - 1))
+        if val > 0:
+            w |= 0xFF << (8 * (nb * e + val - 1))
+    return w
+
+
+def _kernel_coeff_tile(a, params):
+    """The coefficient words keyswitch_kernel's producer writes, modelled
+    in NumPy from its source: the digit table, each 16-byte chunk c's
+    per-word map (coefficient jlo or jlo + 1 of the stage, shift, kept
+    bytes) and the per-stage lookup, for every row and stage:
+    [B, S * 128] int8."""
+    kp = params.ks
+    t, basebit = kp.t, kp.basebit
+    nb = 1 << (basebit - 1)
+    spw, tnb = 4 // nb, t * nb
+    P_ = (tnb + 3) // 4 * 4
+    J = 128 // P_
+    B, d1 = a.shape
+    S = -(-d1 // J)
+    off = (kp.decomp_offset + kp.roundoffset) % (1 << 32)
+    lut = np.array([_digit_word(i, basebit) for i in range(1 << spw * basebit)],
+                   dtype=np.uint64)
+    fmask = (1 << spw * basebit) - 1
+    out = np.zeros((B, S, 32), dtype=np.uint32)
+    assert P_ >= 8                     # the C entry refuses smaller
+    for c in range(8):
+        jlo = None
+        for w in range(4):
+            byte = 16 * c + 4 * w
+            jl = byte // P_
+            ob = byte - jl * P_
+            keep = (0 if jl >= J or ob >= tnb else
+                    (1 << 8 * (tnb - ob)) - 1 if ob + 4 > tnb else 0xFFFFFFFF)
+            if keep and jlo is None:
+                jlo = jl
+            hi = int(bool(keep) and jl > jlo)
+            assert not keep or jl - jlo == hi      # two coefficients a chunk
+            sh = 32 - (ob // nb + spw) * basebit if keep else 0
+            for s in range(S):
+                j = s * J + (jlo or 0) + hi
+                if keep == 0 or j >= d1:
+                    continue
+                x = (a[:, j].astype(np.uint64) + off) & 0xFFFFFFFF
+                out[:, s, 4 * c + w] = lut[(x >> sh) & fmask] & keep
+    return out.reshape(B, -1).view(np.int8)
+
+
+@pytest.mark.parametrize("params", [TP_.TINY, TP_.TINY_Q, TP_.TINY_K2,
+                                    TP_.CONCRETE, _ks_params(13, 1),
+                                    _ks_params(30, 1), _ks_params(15, 2),
+                                    _ks_params(10, 3)],
+                         ids=lambda p: p.name)
+def test_kernel_coefficient_words_model(params):
+    """t*numbase of 8 to 40, basebit 1 to 3, stages with padding words and
+    words cut at t*numbase: the kernel's words equal ks_stage_coeffs."""
+    rng = np.random.default_rng(8)
+    d1 = params.lvl1.k * params.lvl1.n
+    a = rng.integers(0, 1 << 32, (4, d1), dtype=np.uint64).astype(np.uint32)
+    a[0] = 0
+    a[1] = 0xFFFFFFFF
+    assert np.array_equal(_kernel_coeff_tile(a, params),
+                          TKS.ks_stage_coeffs(from_u32(a), params).numpy())
+
+
+@pytest.mark.parametrize("params", [TP_.TFHEPP_128, TP_.CONCRETE, TP_.TINY,
+                                    TP_.TINY_Q, TP_.RADIX4_2048],
+                         ids=lambda p: p.name)
+@pytest.mark.parametrize("rows", [1, 48, 64, 65, 160, 480, 4096])
+def test_ks_plan_covers_every_stage_once(params, rows):
+    """ks_plan's row tile and split, and the kernel's ranges (z*S/Z ..
+    (z+1)*S/Z, csrc/keyswitch.cu) cover the S stages once, none empty;
+    where the tiles alone leave SMs idle the split fills at least half
+    (or cuts every stage apart)."""
+    row_tile, split = TKS.ks_plan(rows, params)
+    assert row_tile == (64 if rows <= 64 else 128)
+    _, _, S, Mt = TKS.ks_layout(params)
+    assert 1 <= split <= S
+    bounds = [z * S // split for z in range(split + 1)]
+    assert bounds[0] == 0 and bounds[-1] == S
+    assert all(b1 > b0 for b0, b1 in zip(bounds, bounds[1:]))
+    blocks = Mt * -(-rows // row_tile)
+    if blocks < TKS.H100_SMS:
+        assert blocks * split >= min(TKS.H100_SMS // 2, blocks * S)
+
+
+def test_ks_plan_at_aes_and_nand_shapes():
+    """tfhepp_128bit: 10 column tiles, 128 stages; a 160-row AES step
+    splits 6 ways (120 blocks), a 4096-row NAND call 2 ways."""
+    assert TKS.ks_layout(TP_.TFHEPP_128) == (16, 8, 128, 10)
+    assert TKS.ks_plan(160, TP_.TFHEPP_128) == (128, 6)
+    assert TKS.ks_plan(4096, TP_.TFHEPP_128) == (128, 2)
+    assert TKS.ks_layout(TP_.CONCRETE) == (12, 10, 103, 10)

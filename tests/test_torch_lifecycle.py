@@ -45,7 +45,7 @@ def test_release_and_reprepare_roundtrip(keyed_bits, backend):
     ctx.release_keys(("pallas",))
     assert ctx.keys.bk_ext.numel() == 0
     assert ctx.keys.bk_ext.dtype == torch.int8
-    assert ctx.keys.ksk_limbs_sei.numel() > 0     # the KSK survives
+    assert ctx.keys.ksk_tiles.numel() > 0     # the KSK survives
     ctx.prepare_backend(ek, backend)
     assert torch.equal(ctx.nand(a, b).data, before.data)   # bit-identical
 
@@ -55,10 +55,10 @@ def test_full_release_frees_everything(keyed_bits):
     ctx = Context(ek, device="cpu")
     before = ctx.nand(a, b)
     ctx.release_keys()
-    for name in ("bk_ext", "ksk_limbs_sei", "sei_perm"):
+    for name in ("bk_ext", "ksk_tiles", "sei_perm"):
         assert getattr(ctx.keys, name).numel() == 0, name
     ctx.prepare_backend(ek)             # restores the KSK alongside
-    assert ctx.keys.ksk_limbs_sei.numel() > 0 and ctx.keys.sei_perm.numel()
+    assert ctx.keys.ksk_tiles.numel() > 0 and ctx.keys.sei_perm.numel()
     assert torch.equal(ctx.nand(a, b).data, before.data)
     ctx.release_keys(("ksk",))
     assert ctx.keys.bk_ext.numel() > 0

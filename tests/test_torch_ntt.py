@@ -177,7 +177,7 @@ def test_device_keys_hold_the_jax_ntt_key(tiny_key):
     assert np.array_equal(to_u32(mine.bk_ntt), np.asarray(theirs.bk_ntt))
     assert np.array_equal(to_u32(mine.bk_ntt_shoup),
                           np.asarray(theirs.bk_ntt_shoup))
-    assert mine.bk_ext.numel() == 0 and mine.ksk_limbs_sei.numel() > 0
+    assert mine.bk_ext.numel() == 0 and mine.ksk_tiles.numel() > 0
     exact = TK.prepare_keys(ek, "cpu")
     assert exact.bk_ntt.numel() == 0 and exact.bk_ext.numel() > 0
 

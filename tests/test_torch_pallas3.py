@@ -232,7 +232,7 @@ def test_pallas3_key_lifecycle():
     assert ctx.keys.bk_ext.shape[3] == 3 and ctx._path == "pallas3"
     before = ctx.nand(a, b)
     ctx.release_keys(("pallas3",))
-    assert ctx.keys.bk_ext.numel() == 0 and ctx.keys.ksk_limbs_sei.numel()
+    assert ctx.keys.bk_ext.numel() == 0 and ctx.keys.ksk_tiles.numel()
     with pytest.raises(ValueError, match="release_keys"):
         ctx.nand(a, b)
     with pytest.warns(UserWarning, match="EXPERIMENTAL"):

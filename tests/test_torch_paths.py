@@ -94,7 +94,7 @@ def test_gate_lvl1_all_ten(setup):
 @pytest.mark.parametrize("key", ["tiny_key", "tiny_k2_key"])
 def test_lvl1_key_switch_with_one_ksk(key, request):
     """key_switch(x, natural KSK) == key_switch(x gathered by sei_perm,
-    ksk_limbs_sei), with int and per-row tensor pre-add constants."""
+    ksk_tiles), with int and per-row tensor pre-add constants."""
     sk, ek = request.getfixturevalue(key)
     p = sk.params
     d1 = p.lvl1.k * p.lvl1.n
@@ -113,18 +113,18 @@ def test_lvl1_key_switch_with_one_ksk(key, request):
                               pre=(u(1), u(-1), u(off), jnp.asarray(other))))
     assert np.array_equal(want, _rows(
         lambda t, o: G.key_switch(t, ek, pre=(1, -1, off, o)), x, other))
-    got = TKS.key_switch(from_u32(x), tkeys.ksk_limbs_sei, p,
+    got = TKS.key_switch(from_u32(x), tkeys.ksk_tiles, p,
                          pre=(1, -1, off, from_u32(other)),
                          perm=tkeys.sei_perm)
     assert np.array_equal(to_u32(got), want)
     rows = torch.tensor([[1, -1, i32(off)]] * 5, dtype=torch.int32)
     for ca, cb, of in ((rows[:, 0], rows[:, 1], rows[:, 2]),
                        (rows[:, 0:1], rows[:, 1:2], rows[:, 2:3])):
-        got = TKS.key_switch(from_u32(x), tkeys.ksk_limbs_sei, p,
+        got = TKS.key_switch(from_u32(x), tkeys.ksk_tiles, p,
                              pre=(ca, cb, of, from_u32(other)),
                              perm=tkeys.sei_perm)
         assert np.array_equal(to_u32(got), want)
-    plain = TKS.key_switch(from_u32(x), tkeys.ksk_limbs_sei, p,
+    plain = TKS.key_switch(from_u32(x), tkeys.ksk_tiles, p,
                            perm=tkeys.sei_perm)
     assert np.array_equal(to_u32(plain), _rows(lambda t: G.key_switch(t, ek),
                                                x))
