@@ -33,10 +33,9 @@ Phases, each raising on failure:
      switch kernel on the context's KSK at the main path's 4096 rows and
      an AES step's 160, bit for bit against its plain version
      (key_switch_ref), then alone at both row counts
-     (benchmarks.keyswitch.measure: held against the one-hot path of four
-     torch._int_mm calls, then the median of KS_LAUNCHES launches, warm
-     and after an L2 flush) beside its bound, its plain version and that
-     one-hot path as the library yardstick;
+     (benchmarks.keyswitch.measure: held against key_switch_ref on a
+     random KSK, then the median of KS_LAUNCHES launches, warm and after
+     an L2 flush) beside its bound and its plain version;
   7. both tensor-core probe kernels, wgmma (csrc/mxu_peak_wgmma.cu) and
      mma.sync (csrc/mxu_peak.cu), against their plain version, bit for
      bit: all four variants at the small shape, pure and place at the full
@@ -1803,7 +1802,7 @@ def main() -> int:
     del acc, abar_i
     # the key switch kernel on the context's KSK at the main path's rows
     # and an AES step's, against its plain version; then alone (measure
-    # holds each case to the one-hot path first, on a random KSK)
+    # holds each case to the plain version first, on a random KSK)
     ks_err = 0
     for rows in (BATCH, KS_AES_ROWS):
         acc, _ = random_rotation_inputs(T.TFHEPP_128, rows, 600 + rows, dev)
@@ -1826,8 +1825,7 @@ def main() -> int:
             f"L2 flush {rec['cold_ms'] * 1e3:.2f} us; bound "
             f"{rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']}), "
             f"{100 * rec['warm_share_of_bound']:.1f} % of it; plain "
-            f"{rec['plain_ms']:.3f} ms, the one-hot path of four "
-            f"torch._int_mm {rec['library_ms']:.3f} ms (CUDA events) {tag}")
+            f"{rec['plain_ms']:.3f} ms (CUDA events) {tag}")
 
     # 7. the tensor-core probe; 8. and 9. the bootstrapping paths
     seconds = {"1-6": time.perf_counter() - started}
@@ -1906,12 +1904,11 @@ def main() -> int:
          "ms": ksw[BATCH]["warm_ms"], "plain_ms": ksw[BATCH]["plain_ms"],
          "bound_ms": ksw[BATCH]["bound_ms"],
          "bound_by": ksw[BATCH]["bound_by"],
-         "library_ms": ksw[BATCH]["library_ms"],
+         "library_ms": None,
          "ms_cold": ksw[BATCH]["cold_ms"],
          "ms_aes_rows": ksw[KS_AES_ROWS]["warm_ms"],
          "plain_ms_aes_rows": ksw[KS_AES_ROWS]["plain_ms"],
-         "bound_ms_aes_rows": ksw[KS_AES_ROWS]["bound_ms"],
-         "library_ms_aes_rows": ksw[KS_AES_ROWS]["library_ms"]},
+         "bound_ms_aes_rows": ksw[KS_AES_ROWS]["bound_ms"]},
         {"name": "mxu_peak", "route": "cuda", "source": PROBE_SOURCE,
          "replaces": PROBE_REPLACES, **probe["mma_sync"]},
         {"name": "mxu_peak_wgmma", "route": "cuda", "source": WGMMA_SOURCE,

@@ -7,6 +7,12 @@ _build/<hash of the sources, the csrc/*.cuh headers they include and the
 flags>/ beside this file, and is reused while those are unchanged. Without
 nvcc, or when the build fails, load() raises: there is no fallback.
 
+This module owns that interface: every launch entry's ctypes signature
+(_ENTRIES), the checks a tensor passes before its pointer crosses
+(check_cuda), and the launch itself (call), which enters the device, passes
+its current stream's handle last and turns a nonzero return code into a
+RuntimeError. The kernels' wrappers launch only through call.
+
 load_host() does the same for the host-side circuit scheduler
 (runtime/_native/circuit.cpp), with g++ and no CUDA, into
 _build/host-<hash>/: the CPU tests use it too.
@@ -20,6 +26,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -29,6 +37,19 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 HOST_SRC = _PKG / "runtime" / "_native" / "circuit.cpp"
 HOST_LIB_NAME = "libcufhe_circuit.so"
 GXX_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC"]
+#: streaming multiprocessors of an H100 SXM, the launch plans' default
+H100_SMS = 132
+
+_I, _U, _P = ctypes.c_int, ctypes.c_uint, ctypes.c_void_p
+#: every launch entry's arguments before the stream handle, which each takes
+#: last; each returns a cudaError_t (0 on success)
+_ENTRIES = {
+    "cufhe_blind_rotate": [_P] * 4 + [_I] * 11 + [_U, _I],
+    "cufhe_rotdec": [_P] * 3 + [_I] * 9 + [_U],
+    "cufhe_key_switch": [_P, _P, _I, _P, _I, _P] + [_I] * 5 + [_U, _I, _I],
+    "cufhe_mxu_peak": [_I] + [_P] * 4 + [_I] * 5,
+    "cufhe_mxu_peak_wgmma": [_I] * 2 + [_P] * 4 + [_I] * 6,
+}
 
 _lib = None
 _host_lib = None
@@ -110,32 +131,55 @@ def load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        lib.cufhe_blind_rotate.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
-            + [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p])
-        lib.cufhe_blind_rotate.restype = ctypes.c_int
-        lib.cufhe_rotdec.argtypes = (
-            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
-            + [ctypes.c_uint, ctypes.c_void_p])
-        lib.cufhe_rotdec.restype = ctypes.c_int
-        lib.cufhe_key_switch.argtypes = (
-            [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p,
-                                     ctypes.c_int, ctypes.c_void_p]
-            + [ctypes.c_int] * 5 + [ctypes.c_uint] + [ctypes.c_int] * 2
-            + [ctypes.c_void_p])
-        lib.cufhe_key_switch.restype = ctypes.c_int
-        lib.cufhe_mxu_peak.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-            + [ctypes.c_void_p])
-        lib.cufhe_mxu_peak.restype = ctypes.c_int
-        lib.cufhe_mxu_peak_wgmma.argtypes = (
-            [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-            + [ctypes.c_void_p])
-        lib.cufhe_mxu_peak_wgmma.restype = ctypes.c_int
-        lib.cufhe_error_string.argtypes = [ctypes.c_int]
+        for name, args in _ENTRIES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = args + [_P]
+            fn.restype = _I
+        lib.cufhe_error_string.argtypes = [_I]
         lib.cufhe_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def cdiv(a: int, b: int) -> int:
+    """ceil(a / b) of ints."""
+    return -(-a // b)
+
+
+def sms(device: torch.device) -> int:
+    """The SM count of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def check_cuda(want: dict) -> None:
+    """Raise ValueError unless every tensor has its dtype and shape (checked
+    first, for all), lies on the first one's CUDA device and is contiguous.
+    want: name -> (tensor, dtype, shape)."""
+    for name, (t, dtype, shape) in want.items():
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: want {dtype} {shape}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+    device = next(iter(want.values()))[0].device
+    for name, (t, _, _) in want.items():
+        if t.device.type != "cuda" or t.device != device:
+            raise ValueError(f"{name} must lie on one CUDA device with the "
+                             f"others, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def call(entry: str, device: torch.device, *args) -> None:
+    """Launch C entry `entry` (one of _ENTRIES) of the kernel library on
+    `device`: `args`, then the handle of the device's current stream. The
+    work is enqueued on that stream; a nonzero return code raises
+    RuntimeError naming the entry and cufhe_error_string's message."""
+    lib = load()
+    with torch.cuda.device(device):
+        rc = getattr(lib, entry)(*args,
+                                 torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        msg = lib.cufhe_error_string(rc).decode()
+        raise RuntimeError(f"{entry} failed: {msg} ({rc})")
 
 
 def host_build_dir() -> Path:

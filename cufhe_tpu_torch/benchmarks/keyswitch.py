@@ -2,10 +2,8 @@
 the card, at the row counts the main path gives it: its time a launch
 beside the least time the card could take (the KSK's and the rows' bytes
 at the H100's device-memory rate, or its int8 operations at the
-tensor-core rate, whichever is larger), beside its plain version
-(key_switch_ref, torch ops on the card) and beside the one-hot path of
-four torch._int_mm calls that the port ran before the kernel
-(key_switch_onehot; the port no longer calls it: a library yardstick).
+tensor-core rate, whichever is larger) and beside its plain version
+(key_switch_ref, torch ops on the card).
 
     python -m cufhe_tpu_torch.benchmarks.keyswitch
         [--params tfhepp_128bit,concrete] [--rows 48,160,480,4096]
@@ -16,7 +14,7 @@ Each launch is timed between two CUDA events with the queue held full
 launches follow each other on the same inputs, "cold" ones follow a write
 of 128 MB that evicts the 50 MB L2, as a key switch finds the KSK after a
 blind rotation has streamed its key. Each case is first held against the
-one-hot path bit for bit. The KSK is random: the arithmetic needs no real
+plain version bit for bit. The KSK is random: the arithmetic needs no real
 key. Prints one JSON line per case with the card's name and power limit;
 exits 2 without a CUDA device.
 """
@@ -34,7 +32,7 @@ from ._common import HBM_BYTES_PER_S, INT8_OPS_PER_S
 FLUSH_BYTES = 128 << 20
 #: cycles of the sleep kernel that holds the queue while launches enqueue
 SLEEP_CYCLES = 200_000_000
-#: launches of the plain version and the library path (each a few ms)
+#: launches of the plain version (each a few ms)
 YARDSTICK_LAUNCHES = 5
 
 
@@ -54,8 +52,8 @@ def ks_work(params, rows: int) -> tuple:
 
 
 def random_case(params, rows: int, seed: int, device):
-    """(tlwe1 [rows, d1+1] int32, KSK limbs [4, K, n0+1] int8, the same
-    KSK in ksk_tiles' layout), random, on `device`."""
+    """(tlwe1 [rows, d1+1] int32, a KSK in ksk_tiles' layout), random, on
+    `device`."""
     from ..ops.keyswitch import ksk_tiles
     from ..torus import from_u32
     kp = params.ks
@@ -65,20 +63,19 @@ def random_case(params, rows: int, seed: int, device):
     limbs = torch.from_numpy(rng.integers(
         -128, 128, (4, kp.t * kp.numbase * d1, params.lvl0.dim + 1),
         dtype=np.int8)).to(device)
-    return (from_u32(x.astype(np.uint32), device), limbs,
-            ksk_tiles(limbs, params))
+    return from_u32(x.astype(np.uint32), device), ksk_tiles(limbs, params)
 
 
 def measure(params, rows: int, launches: int, seed: int = 7) -> dict:
-    """One case: bit-exact against the one-hot path, then the kernel's
-    warm and cold medians, the plain version's and the library path's."""
+    """One case: bit-exact against the plain version, then the kernel's
+    warm and cold medians and the plain version's."""
     from ..ops import keyswitch as KS
     from ..utils.timing import time_fn
-    x, limbs, tiles = random_case(params, rows, seed, "cuda")
+    x, tiles = random_case(params, rows, seed, "cuda")
     if not torch.equal(KS.key_switch_cuda(x, tiles, params),
-                       KS.key_switch_onehot(x, limbs, params)):
-        raise AssertionError(f"keyswitch_kernel differs from the one-hot "
-                             f"path at {params.name}, {rows} rows")
+                       KS.key_switch_ref(x, tiles, params)):
+        raise AssertionError(f"keyswitch_kernel differs from key_switch_ref "
+                             f"at {params.name}, {rows} rows")
     ops, nbytes = ks_work(params, rows)
     ops_ms = ops / INT8_OPS_PER_S * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -96,8 +93,6 @@ def measure(params, rows: int, launches: int, seed: int = 7) -> dict:
         rec[f"{name}_share_of_bound"] = bound_ms / ms
     rec["plain_ms"] = time_fn(KS.key_switch_ref, x, tiles, params,
                               iters=YARDSTICK_LAUNCHES) * 1e3
-    rec["library_ms"] = time_fn(KS.key_switch_onehot, x, limbs, params,
-                                iters=YARDSTICK_LAUNCHES) * 1e3
     return rec
 
 

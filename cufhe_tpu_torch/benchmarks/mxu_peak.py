@@ -40,6 +40,7 @@ import sys
 import numpy as np
 import torch
 
+from .._build import H100_SMS, call, check_cuda
 from ..torus import int_mm
 
 VARIANTS = ("pure", "place", "write", "bf16")
@@ -49,8 +50,6 @@ INSTRUCTIONS = ("wgmma", "mma_sync")
 NBUF = 3
 #: each kernel's tile multiples (M, W, K bytes: 128 int8 or 64 bf16 values)
 TILE = {"wgmma": (128, 128, 128), "mma_sync": (128, 64, 128)}
-#: an H100's SMs: the wgmma split aims at one block on each
-SMS = 132
 
 #: (M, K, W, S, steps) of the JAX probe's full and small (MXU_PEAK_SMALL)
 #: kernel cases
@@ -138,13 +137,13 @@ def wgmma_plan(variant: str, M: int, K: int, W: int, S: int) -> dict:
     registers), and `split`, the number of blocks that share one output
     tile, each summing one range of a step's `slices` (s, k-slice) pairs
     (split_ranges) and adding its partial to the output. The split fills
-    the card: tiles * split <= SMS where the tiles allow."""
+    the card: tiles * split <= H100_SMS where the tiles allow."""
     kb = K * (2 if variant == "bf16" else 1)
     bm = TILE["wgmma"][0]
     bn = 256 if W % 256 == 0 and variant != "place" else 128
     tiles = (M // bm) * (W // bn)
     slices = S * (kb // TILE["wgmma"][2])
-    split = max(1, min(slices, SMS // tiles))
+    split = max(1, min(slices, H100_SMS // tiles))
     return {"bm": bm, "bn": bn, "split": split, "slices": slices,
             "grid": (M // bm, W // bn, split)}
 
@@ -178,8 +177,6 @@ def mxu_peak_cuda(A: torch.Tensor, Xt: torch.Tensor, variant: str,
     reads), Xt [S, W, K], int8 (bf16 for 'bf16'), contiguous, on one CUDA
     device. Enqueued on the current stream; raises if the kernel cannot be
     built or launched, and never runs the other instruction instead."""
-    from .._build import load
-
     if variant not in VARIANTS:
         raise ValueError(f"variant {variant!r}: choose from {VARIANTS}")
     if instruction not in INSTRUCTIONS:
@@ -188,16 +185,8 @@ def mxu_peak_cuda(A: torch.Tensor, Xt: torch.Tensor, variant: str,
     dtype = torch.bfloat16 if variant == "bf16" else torch.int8
     S, M, K = A.shape
     W = Xt.shape[1]
-    want = {"A": (A, (S, M, K)), "Xt": (Xt, (S, W, K))}
-    for name, (t, shape) in want.items():
-        if t.device.type != "cuda" or t.device != A.device:
-            raise ValueError(f"{name} must lie on A's CUDA device, "
-                             f"got {t.device}")
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"{name}: want {dtype} {shape}, "
-                             f"got {t.dtype} {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    check_cuda({"A": (A, dtype, (S, M, K)), "Xt": (Xt, dtype, (S, W, K))})
+    for name, t in (("A", A), ("Xt", Xt)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     kb = K * A.element_size()
@@ -208,27 +197,19 @@ def mxu_peak_cuda(A: torch.Tensor, Xt: torch.Tensor, variant: str,
     if variant == "write" and S % min(NBUF, S):
         raise ValueError(f"write needs S a multiple of {min(NBUF, S)}, "
                          f"so that every step reads A_s in order")
-    lib = load()
-    stream = torch.cuda.current_stream(A.device).cuda_stream
-    with torch.cuda.device(A.device):
-        if instruction == "wgmma":
-            plan = wgmma_plan(variant, M, K, W, S)
-            # blocks of a split add their partials into a zeroed output
-            out = (torch.zeros if plan["split"] > 1 else torch.empty)(
-                (M, W), dtype=torch.int32, device=A.device)
-            rc = lib.cufhe_mxu_peak_wgmma(
-                VARIANTS.index(variant), plan["bn"], A.data_ptr(),
-                Xt.data_ptr(), A.data_ptr(), out.data_ptr(), M, K, W, S,
-                steps, plan["split"], stream)
-        else:
-            out = torch.empty((M, W), dtype=torch.int32, device=A.device)
-            rc = lib.cufhe_mxu_peak(
-                VARIANTS.index(variant), A.data_ptr(), Xt.data_ptr(),
-                A.data_ptr(), out.data_ptr(), M, K, W, S, steps, stream)
-    if rc != 0:
-        msg = lib.cufhe_error_string(rc).decode()
-        raise RuntimeError(f"{instruction} probe kernel failed: {msg} "
-                           f"({rc})")
+    if instruction == "wgmma":
+        plan = wgmma_plan(variant, M, K, W, S)
+        # blocks of a split add their partials into a zeroed output
+        out = (torch.zeros if plan["split"] > 1 else torch.empty)(
+            (M, W), dtype=torch.int32, device=A.device)
+        call("cufhe_mxu_peak_wgmma", A.device, VARIANTS.index(variant),
+             plan["bn"], A.data_ptr(), Xt.data_ptr(), A.data_ptr(),
+             out.data_ptr(), M, K, W, S, steps, plan["split"])
+    else:
+        out = torch.empty((M, W), dtype=torch.int32, device=A.device)
+        call("cufhe_mxu_peak", A.device, VARIANTS.index(variant),
+             A.data_ptr(), Xt.data_ptr(), A.data_ptr(), out.data_ptr(), M, K,
+             W, S, steps)
     mxu_peak_cuda.launches += 1
     mxu_peak_cuda.by_instruction[instruction] += 1
     return out

@@ -1,9 +1,8 @@
 """Phase breakdown of one lvl0 NAND bootstrap at tfhepp_128bit, the
 counterpart of benchmarks/phase_breakdown.py: the full gate, the blind
-rotation alone (pre-add, mod switch and test vector, the CUDA kernel),
-sample extraction and key switch alone, and the key switch's one-hot
-decomposition alone, each at the same batch as a median of CUDA-event
-times (utils.timing.time_fn). null_ms times a call that returns its input:
+rotation alone (pre-add, mod switch and test vector, the CUDA kernel), and
+sample extraction and key switch alone, each at the same batch as a median
+of CUDA-event times (utils.timing.time_fn). null_ms times a call that returns its input:
 the resolution floor.
 
     python -m cufhe_tpu_torch.benchmarks.phase_breakdown [batch] [backend]
@@ -24,7 +23,7 @@ import numpy as np
 from ..golden import GATE_CONSTANTS
 from ..ops.bootstrap import (_gate_coeffs, _pre_add, blind_rotate,
                              gate_lvl0)
-from ..ops.keyswitch import key_switch, ks_decompose_coeffs
+from ..ops.keyswitch import key_switch
 from ..ops.poly import sample_extract_for_ks
 from ..torus import from_u32
 
@@ -54,12 +53,6 @@ def extract_ks_only(acc, keys, params):
                       keys.ksk_tiles, params)
 
 
-def ks_decompose_only(tlwe1, params):
-    """The key switch's int8 selection coefficients of a lvl1 sample."""
-    return ks_decompose_coeffs(tlwe1[:, :params.lvl1.k * params.lvl1.n],
-                               params)
-
-
 def random_inputs(params, batch: int, device, seed: int = 3):
     """Two batches of random lvl0 ciphertexts [batch, n0+1] int32."""
     rng = np.random.default_rng(seed)
@@ -76,7 +69,6 @@ def breakdown(keys, params, batch: int, device="cuda",
     from ..utils.timing import time_fn
     a, b = random_inputs(params, batch, device)
     acc = blind_rotate_only(a, b, keys, params, backend)
-    tlwe1 = sample_extract_for_ks(acc, params.lvl1)
 
     def ms(fn, *args):
         return time_fn(fn, *args, iters=ITERS, device=device) * 1e3
@@ -88,7 +80,6 @@ def breakdown(keys, params, batch: int, device="cuda",
         "blind_rotate_ms": ms(blind_rotate_only, a, b, keys, params,
                               backend),
         "extract_ks_ms": ms(extract_ks_only, acc, keys, params),
-        "ks_decompose_ms": ms(ks_decompose_only, tlwe1, params),
     }
 
 

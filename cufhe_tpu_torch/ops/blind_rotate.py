@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import torch
 
+from .._build import H100_SMS, call, cdiv, check_cuda, sms
 from ..params import GateParams
 from ..torus import int_mm
 from ..utils.spans import count, span
@@ -59,8 +60,6 @@ PALLAS3_MIN_N = 128
 EXTPROD_OUT_TILE = 128
 EXTPROD_ROW_TILE = 64
 EXTPROD_STAGE_BYTES = 128
-#: streaming multiprocessors of an H100 SXM, the plan's default
-H100_SMS = 132
 #: a block's fixed cost (launch, barriers, the ring's first fill, the
 #: epilogue) in stages, as the plan weighs it against shorter ranges; a
 #: guess, not timed against other values (PERF.md)
@@ -71,10 +70,6 @@ EXTPROD_BLOCK_OVERHEAD = 2
 EXTPROD_LEAF_BLOCK_OVERHEAD = 6
 #: the deepest Karatsuba tree (csrc/blind_rotate.cu: kMaxKar)
 KAR_MAX_DEPTH = 2
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
 
 
 def kar_depth(params: GateParams, nlimbs: int = NLIMBS) -> int:
@@ -148,18 +143,18 @@ def extprod_plan(B: int, N: int, kp1: int, I: int,
     two leaves: a range folds once and adds only the quarters its leaf
     feeds to acc."""
     LN = N >> depth
-    blocks = _cdiv(kp1 * LN, EXTPROD_OUT_TILE) * _cdiv(B, EXTPROD_ROW_TILE)
-    stages = 3 ** depth * _cdiv(I * LN, EXTPROD_STAGE_BYTES)
+    blocks = cdiv(kp1 * LN, EXTPROD_OUT_TILE) * cdiv(B, EXTPROD_ROW_TILE)
+    stages = 3 ** depth * cdiv(I * LN, EXTPROD_STAGE_BYTES)
     if blocks >= sms:
         return 1
     if depth:
         splits = [1, *range(3 ** depth, stages + 1, 3 ** depth)]
         overhead = EXTPROD_LEAF_BLOCK_OVERHEAD
     else:
-        splits = range(min(_cdiv(sms, blocks), stages), stages + 1)
+        splits = range(min(cdiv(sms, blocks), stages), stages + 1)
         overhead = EXTPROD_BLOCK_OVERHEAD
     return min(splits, key=lambda z: (
-        _cdiv(blocks * z, sms) * (_cdiv(stages, z) + overhead), z))
+        cdiv(blocks * z, sms) * (cdiv(stages, z) + overhead), z))
 
 
 def check_key_limbs(nlimbs: int, params: GateParams) -> None:
@@ -349,23 +344,6 @@ def _blind_rotate_ref(acc: torch.Tensor, abar: torch.Tensor,
     return acc
 
 
-def _check_cuda(want: dict) -> None:
-    """Raise ValueError unless every tensor has its dtype and shape (checked
-    first, for all), lies on the first one's CUDA device and is contiguous.
-    want: name -> (tensor, dtype, shape)."""
-    for name, (t, dtype, shape) in want.items():
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"{name}: want {dtype} {shape}, "
-                             f"got {t.dtype} {tuple(t.shape)}")
-    device = next(iter(want.values()))[0].device
-    for name, (t, _, _) in want.items():
-        if t.device.type != "cuda" or t.device != device:
-            raise ValueError(f"{name} must lie on one CUDA device with the "
-                             f"others, got {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-
-
 def _decomp_args(params: GateParams) -> tuple:
     """(N, nbit, k, l, Bgbit, nd, dbits, offset) as the C entries take
     them."""
@@ -373,17 +351,6 @@ def _decomp_args(params: GateParams) -> tuple:
     nd, dbits = decomp_digit_limb_plan(lp.Bgbit)
     off = (lp.decomp_offset + lp.decomp_roundoffset) % (1 << 32)
     return lp.n, lp.nbit, lp.k, lp.l, lp.Bgbit, nd, dbits, off
-
-
-def _raise_on(lib, rc: int, entry: str) -> None:
-    if rc != 0:
-        msg = lib.cufhe_error_string(rc).decode()
-        raise RuntimeError(f"{entry} failed: {msg} ({rc})")
-
-
-def _sms(device: torch.device) -> int:
-    """The SM count of a CUDA device."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def blind_rotate_cuda(acc: torch.Tensor, abar: torch.Tensor,
@@ -411,29 +378,22 @@ def _blind_rotate_cuda(acc: torch.Tensor, abar: torch.Tensor,
                        depth: int) -> torch.Tensor:
     """blind_rotate_cuda at Karatsuba depth `depth`, for the tests and
     benchmarks.rotation, which hold and time other depths."""
-    from .._build import load
-
     n0 = params.lvl0.dim
     N, nbit, k, l, Bgbit, nd, dbits, off = _decomp_args(params)
     I = (k + 1) * l * nd
     B = acc.shape[0]
     nlimbs = _key_limbs(bk_ext)
-    _check_cuda({"acc": (acc, torch.int32, (B, k + 1, N)),
-                 "abar": (abar, torch.int32, (n0, B)),
-                 "bk_ext": (bk_ext, torch.int8,
-                            _key_shape(params, nlimbs, depth))})
-    lib = load()
-    split = extprod_plan(B, N, k + 1, I, _sms(acc.device), depth)
+    check_cuda({"acc": (acc, torch.int32, (B, k + 1, N)),
+                "abar": (abar, torch.int32, (n0, B)),
+                "bk_ext": (bk_ext, torch.int8,
+                           _key_shape(params, nlimbs, depth))})
+    split = extprod_plan(B, N, k + 1, I, sms(acc.device), depth)
     out = acc.clone()
     dec = torch.empty((B, 3 ** depth * I * (N >> depth)), dtype=torch.int8,
                       device=acc.device)
-    with torch.cuda.device(acc.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.cufhe_blind_rotate(
-            out.data_ptr(), abar.data_ptr(), bk_ext.data_ptr(),
-            dec.data_ptr(), B, n0, N, nbit, k, l, Bgbit, nd, dbits, nlimbs,
-            depth, off, split, stream)
-    _raise_on(lib, rc, "cufhe_blind_rotate")
+    call("cufhe_blind_rotate", acc.device, out.data_ptr(), abar.data_ptr(),
+         bk_ext.data_ptr(), dec.data_ptr(), B, n0, N, nbit, k, l, Bgbit, nd,
+         dbits, nlimbs, depth, off, split)
     count("blind_rotate")
     count(f"blind_rotate.limbs{nlimbs}")
     count(f"blind_rotate.kar{depth}")
@@ -451,23 +411,16 @@ def rotdec_cuda(acc: torch.Tensor, abar_i: torch.Tensor,
     contiguous on one CUDA device (checked before anything is built).
     Enqueued on the current stream; raises if the kernel cannot be built
     or launched."""
-    from .._build import load
-
     N, nbit, k, l, Bgbit, nd, dbits, off = _decomp_args(params)
     B = acc.shape[0]
-    _check_cuda({"acc": (acc, torch.int32, (B, k + 1, N)),
-                 "abar_i": (abar_i, torch.int32, (B,))})
+    check_cuda({"acc": (acc, torch.int32, (B, k + 1, N)),
+                "abar_i": (abar_i, torch.int32, (B,))})
     depth = kar_depth(params)
-    lib = load()
     I = (k + 1) * l * nd
     shape = (B, I, N) if depth == 0 else (B, 3 ** depth, I, N >> depth)
     dec = torch.empty(shape, dtype=torch.int8, device=acc.device)
-    with torch.cuda.device(acc.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.cufhe_rotdec(acc.data_ptr(), abar_i.data_ptr(),
-                              dec.data_ptr(), B, N, nbit, k, l, Bgbit, nd,
-                              dbits, depth, off, stream)
-    _raise_on(lib, rc, "cufhe_rotdec")
+    call("cufhe_rotdec", acc.device, acc.data_ptr(), abar_i.data_ptr(),
+         dec.data_ptr(), B, N, nbit, k, l, Bgbit, nd, dbits, depth, off)
     count("rotdec")
     return dec
 

@@ -72,8 +72,9 @@ def sei_perm(params: GateParams) -> np.ndarray:
 
 def ksk_limbs_sei(ksk: np.ndarray, params: GateParams) -> np.ndarray:
     """KSK [d1, t, numbase, n0+1] uint32 -> [NLIMBS, K, n0+1] int8 in the
-    (dig, m, j) row order with the sample-extract permutation: the layout
-    keyswitch.key_switch_onehot reads and keyswitch.ksk_tiles re-lays."""
+    (dig, m, j) row order with the sample-extract permutation: the JAX
+    package's layout of the same name, which keyswitch.ksk_tiles re-lays
+    into the kernel's."""
     d1, t, nb, cols = ksk.shape
     kl = u32_to_signed_limbs(ksk[sei_perm(params)])  # [d1, t, nb, n0+1, L]
     return np.transpose(kl, (4, 1, 2, 0, 3)).reshape(NLIMBS, t * nb * d1, cols)

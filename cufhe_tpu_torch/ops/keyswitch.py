@@ -8,7 +8,7 @@ limbs: NLIMBS exact int8 x int8 -> int32 products (the sums stay below
 not bf16 as on the TPU: on CUDA a bf16 product may reduce in lower
 precision, while int8 with int32 accumulation is exact.
 
-Three versions of the same function live here:
+Two versions of the same function live here:
 
 * key_switch_cuda, the hand-written kernel (csrc/keyswitch.cu:
   keyswitch_kernel), one launch a key switch, reading the KSK in the
@@ -17,12 +17,9 @@ Three versions of the same function live here:
   order (j, dig, m). ks_plan chooses its row tile and how many ranges its
   contraction is cut into.
 * key_switch_ref, plain PyTorch in the kernel's layout and contraction
-  order (ks_stage_coeffs), the version key_switch takes for CPU tensors.
-* key_switch_onehot, the JAX package's algorithm as the port first ran
-  it: the (dig, m, j)-major one-hot operand of ks_decompose_coeffs times
-  the KSK in keys.ksk_limbs_sei's layout, through torus.int_mm. The tests
-  and benchmarks.keyswitch hold the other two against it; the program
-  does not call it.
+  order (ks_stage_coeffs), the version key_switch takes for CPU tensors
+  and the one the kernel is held against on the card. The CPU tests hold
+  it against the JAX package's key switch and the golden model.
 
 key_switch takes the plain version for CPU tensors and the kernel for CUDA
 tensors; a kernel that fails to build or launch raises.
@@ -35,10 +32,10 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from .._build import H100_SMS, call, cdiv, check_cuda, sms
 from ..params import GateParams
 from ..torus import i32, int_mm
 from ..utils.spans import count, span
-from .blind_rotate import H100_SMS, _cdiv, _check_cuda, _raise_on, _sms
 from .limbs import LIMB_BITS, NLIMBS
 
 #: keyswitch_kernel's tiling (csrc/keyswitch.cu: kCols, kStageK, Ks<NT>):
@@ -52,36 +49,15 @@ KS_ROW_TILES = (64, 128)
 KS_BLOCK_OVERHEAD = 2
 
 
-def ks_decompose_coeffs(a_in: torch.Tensor, params: GateParams) -> torch.Tensor:
-    """[B, d1] int32 -> [B, t*numbase*d1] int8 selection coefficients.
-
-    Digit val in [-halfbase, halfbase); val = +(m+1) selects row m with -1,
-    val = -(m+1) selects row m with +1 (subtract for a positive digit).
-    The contraction axis is (dig, m, j)-major, matching the KSK row order
-    that keys.ksk_limbs_sei lays out.
-    """
-    kp = params.ks
-    mask = (1 << kp.basebit) - 1
-    halfbase = 1 << (kp.basebit - 1)
-    tmp = a_in + i32(kp.decomp_offset + kp.roundoffset)
-    blocks = []
-    for dig in range(kp.t):
-        val = ((tmp >> (32 - (dig + 1) * kp.basebit)) & mask) - halfbase
-        for m in range(kp.numbase):
-            blocks.append((val == -(m + 1)).to(torch.int8)
-                          - (val == (m + 1)).to(torch.int8))
-    return torch.cat(blocks, dim=1)                    # [B, t*nb*d1]
-
-
 def ks_layout(params: GateParams) -> tuple:
     """(P, J, S, Mt) of the kernel's KSK layout: P bytes an input
     coefficient (its t * numbase coefficient bytes rounded up to 4), J
     coefficients a 128-byte stage, S stages, Mt column tiles of 64."""
     kp = params.ks
-    P = _cdiv(kp.t * kp.numbase, 4) * 4
+    P = cdiv(kp.t * kp.numbase, 4) * 4
     J = KS_STAGE_BYTES // P
     d1 = params.lvl1.k * params.lvl1.n
-    return P, J, _cdiv(d1, J), _cdiv(params.lvl0.dim + 1, KS_COL_TILE)
+    return P, J, cdiv(d1, J), cdiv(params.lvl0.dim + 1, KS_COL_TILE)
 
 
 def ksk_tiles(ksk_limbs_sei: torch.Tensor, params: GateParams
@@ -137,9 +113,9 @@ def ks_plan(B: int, params: GateParams, sms: int = H100_SMS) -> tuple:
     Cached: AES asks for it at every step."""
     row_tile = KS_ROW_TILES[0] if B <= KS_ROW_TILES[0] else KS_ROW_TILES[1]
     _, _, S, Mt = ks_layout(params)
-    blocks = Mt * _cdiv(B, row_tile)
+    blocks = Mt * cdiv(B, row_tile)
     split = min(range(1, S + 1), key=lambda z: (
-        _cdiv(blocks * z, sms) * (_cdiv(S, z) + KS_BLOCK_OVERHEAD), z))
+        cdiv(blocks * z, sms) * (cdiv(S, z) + KS_BLOCK_OVERHEAD), z))
     return row_tile, split
 
 
@@ -167,24 +143,6 @@ def _ks_inputs(tlwe1: torch.Tensor, params: GateParams, pre, perm):
     if perm is not None:
         a_in = a_in[:, perm]
     return a_in, b_in
-
-
-def key_switch_onehot(tlwe1: torch.Tensor, ksk_limbs: torch.Tensor,
-                      params: GateParams, pre=None,
-                      perm: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The key switch as the JAX package computes it: ks_decompose_coeffs'
-    one-hot operand times ksk_limbs [NLIMBS, K, n0+1] int8 in
-    keys.ksk_limbs_sei's layout, one torus.int_mm a limb (on CUDA,
-    torch._int_mm). Arguments and result as key_switch's."""
-    n0 = params.lvl0.dim
-    a_in, b_in = _ks_inputs(tlwe1, params, pre, perm)
-    co = ks_decompose_coeffs(a_in, params)
-    out = None
-    for l in range(NLIMBS):
-        prod = int_mm(co, ksk_limbs[l]) << (LIMB_BITS * l)
-        out = prod if out is None else out + prod
-    out[:, n0] += b_in
-    return out
 
 
 def key_switch_ref(tlwe1: torch.Tensor, ksk: torch.Tensor,
@@ -222,32 +180,25 @@ def key_switch_cuda(tlwe1: torch.Tensor, ksk: torch.Tensor,
     gather, if given, as torch ops in front of one launch. tlwe1 [B, d1+1]
     int32 and ksk (ksk_tiles) on one CUDA device. Enqueued on the current
     stream; raises if the kernel cannot be built or launched."""
-    from .._build import load
-
     kp = params.ks
     d1 = params.lvl1.k * params.lvl1.n
     n0 = params.lvl0.dim
     B = tlwe1.shape[0]
     _, _, S, Mt = ks_layout(params)
     tlwe1 = tlwe1.contiguous()
-    _check_cuda({"tlwe1": (tlwe1, torch.int32, (B, d1 + 1)),
-                 "ksk": (ksk, torch.int8, (Mt, S, NLIMBS, KS_COL_TILE,
-                                           KS_STAGE_BYTES))})
+    check_cuda({"tlwe1": (tlwe1, torch.int32, (B, d1 + 1)),
+                "ksk": (ksk, torch.int8, (Mt, S, NLIMBS, KS_COL_TILE,
+                                          KS_STAGE_BYTES))})
     # a_in and b_in are views of tlwe1 or of new tensors, columns adjacent
     a_in, b_in = _ks_inputs(tlwe1, params, pre, perm)
     out = torch.zeros((B, n0 + 1), dtype=torch.int32, device=tlwe1.device)
     if B == 0:
         return out
-    row_tile, split = ks_plan(B, params, _sms(tlwe1.device))
-    lib = load()
-    with torch.cuda.device(tlwe1.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.cufhe_key_switch(
-            ksk.data_ptr(), a_in.data_ptr(), a_in.stride(0),
-            b_in.data_ptr(), b_in.stride(0), out.data_ptr(), B, d1, n0,
-            kp.t, kp.basebit, (kp.decomp_offset + kp.roundoffset) % (1 << 32),
-            row_tile, split, stream)
-    _raise_on(lib, rc, "cufhe_key_switch")
+    row_tile, split = ks_plan(B, params, sms(tlwe1.device))
+    call("cufhe_key_switch", tlwe1.device, ksk.data_ptr(), a_in.data_ptr(),
+         a_in.stride(0), b_in.data_ptr(), b_in.stride(0), out.data_ptr(), B,
+         d1, n0, kp.t, kp.basebit,
+         (kp.decomp_offset + kp.roundoffset) % (1 << 32), row_tile, split)
     count("key_switch")
     return out
 

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from cufhe_tpu_torch import Context, Ctxt, decrypt_bits, encrypt_bits
+from cufhe_tpu_torch import _build
 from cufhe_tpu_torch import golden as G
 from cufhe_tpu_torch import params as P
 from cufhe_tpu_torch.benchmarks import mxu_peak as MP
@@ -28,6 +29,7 @@ from cufhe_tpu_torch.models.gates import TWO_INPUT
 from cufhe_tpu_torch.ops import blind_rotate as BR
 from cufhe_tpu_torch.ops import keys as TK
 from cufhe_tpu_torch.ops import keyswitch as KS
+from cufhe_tpu_torch.ops.limbs import decomp_digit_limb_plan
 from cufhe_tpu_torch.runtime import (Stream, build_ripple_adder,
                                      run_schedule, synchronize)
 from cufhe_tpu_torch.runtime import executor as EX
@@ -58,6 +60,15 @@ def _random_inputs(params, rows, seed, device):
     abar = rng.integers(0, 2 * lp.n, (params.n0, rows))
     return (from_u32(acc.astype(np.uint32), device),
             from_u32(abar.astype(np.uint32), device))
+
+
+def _decomp_args(params):
+    """(N, nbit, k, l, Bgbit, nd, dbits, offset) as the rotation's C entries
+    take them."""
+    lp = params.lvl1
+    nd, dbits = decomp_digit_limb_plan(lp.Bgbit)
+    off = (lp.decomp_offset + lp.decomp_roundoffset) % (1 << 32)
+    return lp.n, lp.nbit, lp.k, lp.l, lp.Bgbit, nd, dbits, off
 
 
 @functools.lru_cache(maxsize=None)
@@ -417,26 +428,24 @@ def test_cuda_kernel_splits_the_contraction_at_one_row(params, cuda):
     """At B = 1 the plan cuts the contraction into ranges, and the sum of
     the blocks' partials equals the plain product; a split of one range
     on the same input agrees too."""
-    from cufhe_tpu_torch._build import load
     lp = params.lvl1
     bk_ext = _random_bk_ext(params, 142, cuda)
     I = bk_ext.shape[1]
     depth = BR.kar_depth(params)
     acc, abar = _random_inputs(params, 1, 143, cuda)
-    assert BR.extprod_plan(1, lp.n, lp.k + 1, I, BR._sms(acc.device),
+    assert BR.extprod_plan(1, lp.n, lp.k + 1, I, _build.sms(acc.device),
                            depth) > 1
     want = BR.blind_rotate_ref(acc, abar, bk_ext, params)
     assert torch.equal(BR.blind_rotate_cuda(acc, abar, bk_ext, params), want)
-    N, nbit, k, l, Bgbit, nd, dbits, off = BR._decomp_args(params)
+    N, nbit, k, l, Bgbit, nd, dbits, off = _decomp_args(params)
     out = acc.clone()
     dec = torch.empty((1, 3 ** depth * I * (N >> depth)), dtype=torch.int8,
                       device=cuda)
-    rc = load().cufhe_blind_rotate(
-        out.data_ptr(), abar.data_ptr(), bk_ext.data_ptr(), dec.data_ptr(),
-        1, params.n0, N, nbit, k, l, Bgbit, nd, dbits, 4, depth, off, 1,
-        torch.cuda.current_stream().cuda_stream)
+    _build.call("cufhe_blind_rotate", cuda, out.data_ptr(), abar.data_ptr(),
+                bk_ext.data_ptr(), dec.data_ptr(), 1, params.n0, N, nbit, k,
+                l, Bgbit, nd, dbits, 4, depth, off, 1)
     torch.cuda.synchronize()
-    assert rc == 0 and torch.equal(out, want)
+    assert torch.equal(out, want)
 
 
 @pytest.mark.parametrize("chunk", ["", "2"], ids=["one-step", "chunked"])
@@ -698,11 +707,10 @@ def test_cuda_refuses_other_limb_counts(cuda):
     is cudaErrorInvalidValue (1) and launches nothing. The wrapper refuses
     a key of another limb count with ValueError, and raises the C entry's
     refusal."""
-    from cufhe_tpu_torch._build import load
-    lib = load()
+    lib = _build.load()
 
     def call(params, nlimbs, rows=2, split=1, depth=0):
-        N, nbit, k, l, Bgbit, nd, dbits, off = BR._decomp_args(params)
+        N, nbit, k, l, Bgbit, nd, dbits, off = _decomp_args(params)
         I = (k + 1) * l * nd
         acc, abar = _random_inputs(params, rows, 134, cuda)
         bk = torch.zeros((params.n0, I, k + 1, max(nlimbs, 1),
@@ -810,7 +818,7 @@ def test_cuda_karatsuba_kernel_matches_ref(params, depth, rows, cuda):
     assert bk_ext.shape[-1] == BR.leaf_width(lp.n, depth)
     acc, abar = _random_inputs(params, rows, 151, cuda)
     split = BR.extprod_plan(rows, lp.n, lp.k + 1, bk_ext.shape[1],
-                            BR._sms(acc.device), depth)
+                            _build.sms(acc.device), depth)
     assert (split > 1) == (rows < 4096)
     before = counts()
     got = BR.blind_rotate_cuda(acc, abar, bk_ext, params)
@@ -843,7 +851,7 @@ def test_cuda_rotdec_leaf_operands_reach_the_int8_edge(params, cuda):
     digits of -Bg/2 everywhere: the leaf sums reach -128 at depth 2 (four
     digits of -32) and -128 at depth 1 (two of -64), as the plain model."""
     depth = BR.kar_depth(params)
-    N, _, k, l, Bgbit, nd, _, off = BR._decomp_args(params)
+    N, _, k, l, Bgbit, nd, _, off = _decomp_args(params)
     acc = torch.full((5, k + 1, N), off // 2, dtype=torch.int64)
     acc = from_u32(acc.numpy().astype(np.uint32), cuda)
     abar = torch.full((5,), N, dtype=torch.int32, device=cuda)
@@ -898,15 +906,14 @@ def test_cuda_refuses_a_key_at_another_depth(params, depth, cuda):
 
 
 def _random_ksk(params, seed, device):
-    """A random KSK in both layouts on `device`: the limbs
-    [4, t*nb*d1, n0+1] int8 key_switch_onehot reads, and ksk_tiles of
-    them. The kernel's arithmetic needs no real key."""
+    """A random KSK in ksk_tiles' layout on `device`, from random limbs
+    [4, t*nb*d1, n0+1] int8. The kernel's arithmetic needs no real key."""
     kp = params.ks
     rng = np.random.default_rng(seed)
     limbs = torch.from_numpy(rng.integers(
         -128, 128, (4, kp.t * kp.numbase * params.lvl1.k * params.lvl1.n,
                     params.lvl0.dim + 1), dtype=np.int8)).to(device)
-    return limbs, KS.ksk_tiles(limbs, params)
+    return KS.ksk_tiles(limbs, params)
 
 
 def _random_tlwe1(params, rows, seed, device):
@@ -921,15 +928,16 @@ def _random_tlwe1(params, rows, seed, device):
 @pytest.mark.parametrize("rows", [1, 7, 17, 48, 160, 480, 1024, 4096])
 @pytest.mark.parametrize("params", list(P.PRESETS.values()),
                          ids=lambda p: p.name)
-def test_cuda_key_switch_matches_onehot(params, rows, cuda):
-    """keyswitch_kernel bit for bit against the one-hot path at every
-    preset (t*numbase 8 to 28, basebit 3 at TINY_Q) and at row counts
-    that take both row tiles and every kind of split, one launch each."""
-    limbs, tiles = _random_ksk(params, 160, cuda)
+def test_cuda_key_switch_matches_ref(params, rows, cuda):
+    """keyswitch_kernel bit for bit against its plain version
+    (key_switch_ref, on the card) at every preset (t*numbase 8 to 28,
+    basebit 3 at TINY_Q) and at row counts that take both row tiles and
+    every kind of split, one launch each."""
+    tiles = _random_ksk(params, 160, cuda)
     x = _random_tlwe1(params, rows, 161, cuda)
     before = counts()["key_switch"]
     got = KS.key_switch(x, tiles, params)
-    want = KS.key_switch_onehot(x, limbs, params)
+    want = KS.key_switch_ref(x, tiles, params)
     torch.cuda.synchronize()
     assert counts()["key_switch"] == before + 1
     assert got.dtype == torch.int32 and torch.equal(got, want)
@@ -940,9 +948,9 @@ def test_cuda_key_switch_matches_onehot(params, rows, cuda):
                          ids=lambda p: p.name)
 def test_cuda_key_switch_pre_add_and_perm(params, rows, cuda):
     """The pre-add (int and per-row constants) and the sei_perm gather in
-    front of the kernel, against the one-hot path and the CPU's plain
-    version of the kernel."""
-    limbs, tiles = _random_ksk(params, 162, cuda)
+    front of the kernel, against the kernel's plain version on the card
+    and on the CPU."""
+    tiles = _random_ksk(params, 162, cuda)
     x = _random_tlwe1(params, rows, 163, cuda)
     y = _random_tlwe1(params, rows, 164, cuda)
     perm = torch.from_numpy(TK.sei_perm(params)).to(cuda)
@@ -950,8 +958,8 @@ def test_cuda_key_switch_pre_add_and_perm(params, rows, cuda):
     for pre in (None, (1, -1, 1 << 29, y), (per_row, 1, -per_row, y)):
         for pm in (None, perm):
             got = KS.key_switch(x, tiles, params, pre, pm)
-            assert torch.equal(got, KS.key_switch_onehot(x, limbs, params,
-                                                         pre, pm))
+            assert torch.equal(got, KS.key_switch_ref(x, tiles, params, pre,
+                                                      pm))
             cpu = lambda v: v.cpu() if isinstance(v, torch.Tensor) else v
             ref = KS.key_switch(x.cpu(), tiles.cpu(), params,
                                 None if pre is None else tuple(map(cpu, pre)),
@@ -987,7 +995,7 @@ def test_cuda_gates_launch_one_key_switch_and_no_int_mm(cuda, monkeypatch):
 
 def test_cuda_key_switch_rejects_bad_inputs(cuda):
     params = P.TINY
-    limbs, tiles = _random_ksk(params, 167, cuda)
+    tiles = _random_ksk(params, 167, cuda)
     x = _random_tlwe1(params, 4, 168, cuda)
     with pytest.raises(ValueError, match="want"):
         KS.key_switch_cuda(x, tiles[:, :3], params)
@@ -997,7 +1005,7 @@ def test_cuda_key_switch_rejects_bad_inputs(cuda):
     # kernel's 4-byte words: the C entry refuses it and launches nothing
     wide = P.GateParams(name="basebit4", lvl0=params.lvl0, lvl1=params.lvl1,
                         ks=P.KeySwitchParams(t=4, basebit=4))
-    _, wtiles = _random_ksk(wide, 169, cuda)
+    wtiles = _random_ksk(wide, 169, cuda)
     before = counts()["key_switch"]
     with pytest.raises(RuntimeError, match="invalid argument"):
         KS.key_switch_cuda(x, wtiles, wide)

@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from cufhe_tpu_torch import params as P
+from cufhe_tpu_torch._build import H100_SMS
 from cufhe_tpu_torch.ops import blind_rotate as BR
 from cufhe_tpu_torch.ops.limbs import decomp_digit_limb_plan
 
@@ -131,7 +132,7 @@ def test_plan_covers_every_block_once(N, kp1, nlimbs, B):
                         seen[x, y, li, s] = seen.get((x, y, li, s), 0) + 1
     assert set(seen.values()) == {1}
     assert len(seen) == nx * ny * nlimbs * stages
-    if nx * ny >= BR.H100_SMS:
+    if nx * ny >= H100_SMS:
         assert split == 1        # a full card needs no split
 
 
@@ -141,7 +142,7 @@ def test_plan_fills_the_card_at_tfhepp_128bit(B):
     I = (lp.k + 1) * lp.l * decomp_digit_limb_plan(lp.Bgbit)[0]
     split = BR.extprod_plan(B, lp.n, lp.k + 1, I)
     nx, ny = kernel_tiles(B, lp.n, lp.k + 1)
-    assert nx * ny * split >= BR.H100_SMS
+    assert nx * ny * split >= H100_SMS
     assert (split > 1) == (B == 1)
 
 
@@ -210,11 +211,11 @@ def test_plan_covers_every_leaf_block_once(N, depth, kp1, B):
     assert set(seen.values()) == {1} and len(seen) == stages
     assert set(fed.values()) == {1}
     assert len(fed) == 4 ** depth * S
-    if nx * ny >= BR.H100_SMS:
+    if nx * ny >= H100_SMS:
         assert split == 1
     else:              # the least waves x (stages a range + overhead)
         def cost(z):
-            return (-(-nx * ny * z // BR.H100_SMS)
+            return (-(-nx * ny * z // H100_SMS)
                     * (-(-stages // z) + BR.EXTPROD_LEAF_BLOCK_OVERHEAD))
         assert all(cost(split) <= cost(z)
                    for z in [1, *range(3 ** depth, stages + 1, 3 ** depth)])

@@ -1,7 +1,7 @@
 """cufhe_tpu_torch key switch and its KSK layouts against cufhe_tpu (JAX) and
-the NumPy golden model, as uint32 equality: the one-hot path in the JAX
-package's layout, the kernel's layout (ksk_tiles) and the plain version of
-the kernel (key_switch_ref), and a NumPy model of how the kernel builds its
+the NumPy golden model, as uint32 equality: the kernel's layout (ksk_tiles)
+and coefficient order (ks_stage_coeffs), the plain version of the kernel
+(key_switch_ref), and a NumPy model of how the kernel builds its
 coefficient words."""
 import jax.numpy as jnp
 import numpy as np
@@ -14,6 +14,7 @@ from cufhe_tpu.ops import keys as JK
 from cufhe_tpu.ops import keyswitch as JKS
 from cufhe_tpu.ops import poly as JP
 from cufhe_tpu_torch import params as TP_
+from cufhe_tpu_torch._build import H100_SMS
 from cufhe_tpu_torch.ops import keys as TK
 from cufhe_tpu_torch.ops import keyswitch as TKS
 from cufhe_tpu_torch.ops import poly as TP
@@ -86,11 +87,23 @@ def test_ksk_tiles_against_ksk_limbs_sei(params):
 
 
 def test_ks_decompose_coeffs(setup):
+    """ks_stage_coeffs is the JAX package's ks_decompose_coeffs with its
+    (dig, m, j)-major column (dig*nb + m)*d1 + j at byte (j // J) * 128 +
+    (j % J) P + dig*nb + m of the kernel's stage order (ks_layout), and
+    zero at every other byte."""
     params = setup[0]
+    kp = params.ks
+    d1 = params.lvl1.k * params.lvl1.n
+    P_, J, S, _ = TKS.ks_layout(params)
     a_in = _tlwe1(params, 1)[:, :-1]
-    got = TKS.ks_decompose_coeffs(from_u32(a_in), params).numpy()
-    want = np.asarray(JKS.ks_decompose_coeffs(jnp.asarray(a_in), params)
+    got = TKS.ks_stage_coeffs(from_u32(a_in), params).numpy()
+    jdec = np.asarray(JKS.ks_decompose_coeffs(jnp.asarray(a_in), params)
                       .astype(jnp.float32))
+    dig, m, j = np.meshgrid(np.arange(kp.t), np.arange(kp.numbase),
+                            np.arange(d1), indexing="ij")
+    want = np.zeros((a_in.shape[0], S * 128), dtype=np.float32)
+    want[:, ((j // J) * 128 + (j % J) * P_ + dig * kp.numbase + m).ravel()] \
+        = jdec[:, ((dig * kp.numbase + m) * d1 + j).ravel()]
     assert got.dtype == np.int8
     assert np.array_equal(got.astype(np.float32), want)
 
@@ -110,9 +123,6 @@ def test_key_switch_after_extraction(setup):
     want = np.stack([G.key_switch(G.sample_extract_index0(a, lp), ek)
                      for a in acc])
     assert np.array_equal(got, want)
-    limbs = torch.from_numpy(TK.ksk_limbs_sei(ek.ksk, params))
-    assert np.array_equal(to_u32(TKS.key_switch_onehot(tl, limbs, params)),
-                          want)
 
 
 def test_key_switch_fused_pre_add(setup):
@@ -136,25 +146,41 @@ def test_key_switch_fused_pre_add(setup):
     want = np.stack([G.key_switch(a, ek, pre=(ca, cb, off, b))
                      for a, b in zip(x, y)])
     assert np.array_equal(got, want)
-    assert np.array_equal(to_u32(TKS.key_switch_onehot(
-        from_u32(x), limbs_nat, params, pre=pre)), want)
+
+
+def _jax_pre(pre):
+    """A pre-add of key_switch's form as the JAX key switch takes it:
+    uint32 scalars, per-row [B, 1] (ca, cb) and [B] (offset) arrays."""
+    if pre is None:
+        return None
+
+    def u32(c, shape):
+        if isinstance(c, torch.Tensor):
+            return jnp.asarray(to_u32(c).reshape(shape))
+        return np.uint32(c % (1 << 32))
+    ca, cb, off, other = pre
+    return (u32(ca, (-1, 1)), u32(cb, (-1, 1)), u32(off, (-1,)),
+            jnp.asarray(to_u32(other)))
 
 
 @pytest.mark.parametrize("rows", [1, 7, 17])
-def test_key_switch_ref_equals_onehot(setup, rows):
+def test_key_switch_ref_equals_jax(setup, rows):
     """The plain version of the kernel, in its layout and contraction
-    order, against the one-hot path in the JAX package's layout: with and
-    without the pre-add (int and per-row constants) and the sei_perm
-    gather, at ragged row counts."""
-    params, ek, _, tkeys = setup
-    limbs = torch.from_numpy(TK.ksk_limbs_sei(ek.ksk, params))
+    order, against the JAX package's key switch in its own layout: with
+    and without the pre-add (int and per-row constants) and the sei_perm
+    gather, at ragged row counts. Without the gather both read the
+    sample-extract row order (ksk_limbs_sei); with it, the JAX key switch
+    reads the natural-order KSK (ksk_limbs)."""
+    params, ek, jkeys, tkeys = setup
     x, y = from_u32(_tlwe1(params, 5, rows)), from_u32(_tlwe1(params, 6, rows))
     per_row = torch.full((rows,), -5, dtype=torch.int32)
     for pre in (None, (1, -1, 12345, y), (per_row, 1, per_row, y)):
-        for perm in (None, tkeys.sei_perm):
+        for perm, jksk in ((None, jkeys.ksk_limbs_sei),
+                           (tkeys.sei_perm, jkeys.ksk_limbs)):
             got = TKS.key_switch_ref(x, tkeys.ksk_tiles, params, pre, perm)
-            assert torch.equal(got, TKS.key_switch_onehot(
-                x, limbs, params, pre, perm))
+            want = JKS.key_switch(jnp.asarray(to_u32(x)), jksk, params,
+                                  pre=_jax_pre(pre))
+            assert np.array_equal(to_u32(got), np.asarray(want))
             assert torch.equal(got, TKS.key_switch(
                 x, tkeys.ksk_tiles, params, pre, perm))
 
@@ -250,8 +276,8 @@ def test_ks_plan_covers_every_stage_once(params, rows):
     assert bounds[0] == 0 and bounds[-1] == S
     assert all(b1 > b0 for b0, b1 in zip(bounds, bounds[1:]))
     blocks = Mt * -(-rows // row_tile)
-    if blocks < TKS.H100_SMS:
-        assert blocks * split >= min(TKS.H100_SMS // 2, blocks * S)
+    if blocks < H100_SMS:
+        assert blocks * split >= min(H100_SMS // 2, blocks * S)
 
 
 def test_ks_plan_at_aes_and_nand_shapes():

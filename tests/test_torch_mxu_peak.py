@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from cufhe_tpu_torch._build import H100_SMS
 from cufhe_tpu_torch.benchmarks import mxu_peak as TM
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -113,7 +114,7 @@ def test_wgmma_plan_fills_the_card(name):
         blocks = plan["grid"][0] * plan["grid"][1] * plan["grid"][2]
         assert blocks >= 128, (v, plan)
         if plan["split"] > 1:
-            assert blocks <= TM.SMS
+            assert blocks <= H100_SMS
     assert TM.wgmma_plan("pure", *TM.FULL[:4])["split"] == 4
 
 
