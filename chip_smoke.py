@@ -115,10 +115,22 @@ Phases, each raising on failure:
      three-limb instance launched once a gate and the exact one never;
      one pallas3 NAND under torch.profiler (one keyswitch_kernel launch,
      no library GEMM); the noise std and margins at
-     batch 2048 (benchmarks/noise.py) beside the JAX record.
+     batch 2048 (benchmarks/noise.py) beside the JAX record;
+ 21. the persistent rotation (one cooperative launch of
+     persistent_extprod_kernel a rotation, where ops.blind_rotate.
+     rotation_plan takes it: the batches too small to fill the card) at
+     every published preset and 1, 48, 160 and 480 rows, equal as uint32
+     to the plain version and to the loop of 2 n0 launches on 20 fresh
+     inputs each, with one persistent launch and no rotdec launch a
+     rotation; one AES-128 block at batch 1 (the aes128_b1 cell's shape)
+     right, all 257 rotations persistent; the loop and the persistent
+     kernel timed a step at tfhepp_128bit from 1 to 2048 rows
+     (benchmarks.rotation.measure_paths). Phase 5's NAND chain at batch
+     4096 takes the loop: no persistent launch.
 
 Prints the card line, a {"kernels": [...]} line (blind_rotate, rotdec,
-key_switch, mxu_peak, mxu_peak_wgmma, blind_rotate_pallas3), and as the last
+key_switch, mxu_peak, mxu_peak_wgmma, blind_rotate_pallas3,
+blind_rotate_persistent), and as the last
 line {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
 The client side (keygen, encrypt, decrypt) and the oracle are the port's
 NumPy module cufhe_tpu_torch.golden; neither JAX nor the JAX package is
@@ -155,6 +167,19 @@ KS_AES_ROWS = 160
 EXTPROD_INSTANCES = ("extprod_kernel<4, 128, 0>", "extprod_kernel<4, 64, 0>",
                      "extprod_kernel<4, 32, 0>", "extprod_kernel<3, 128, 0>",
                      "extprod_kernel<4, 128, 1>", "extprod_kernel<4, 128, 2>")
+#: the persistent rotation's instances, persistent_extprod_kernel<NL, SEG,
+#: D, L, ND>: each product instance with rotdec's generic digit loops, and
+#: the two published sets' own (l, nd) unrolled
+PERSISTENT_INSTANCES = tuple(
+    f"persistent_{name[:-1]}, 0, 0>" for name in EXTPROD_INSTANCES) + (
+    "persistent_extprod_kernel<4, 128, 2, 3, 1>",
+    "persistent_extprod_kernel<4, 128, 0, 2, 1>")
+#: phase 21: the rows held at every published preset, fresh inputs a case,
+#: the levels of an AES-128 block and the rows timed a step
+PERSIST_ROWS = (1, 48, 160, 480)
+PERSIST_REPS = 20
+AES_LEVELS = 257
+PATHS_ROWS = (1, 48, 160, 480, 2048)
 PROBE_SOURCE = "cufhe_tpu_torch/csrc/mxu_peak.cu"
 WGMMA_SOURCE = "cufhe_tpu_torch/csrc/mxu_peak_wgmma.cu"
 PROBE_REPLACES = "benchmarks/mxu_peak.py:116"
@@ -1351,6 +1376,96 @@ def profile_kernels(fn):
     return per, busy / 1e3, wall
 
 
+def phase_persistent(ctx, sk, tag: str) -> dict:
+    """21. The persistent rotation, one cooperative launch of
+    persistent_extprod_kernel a rotation where rotation_plan takes it: at
+    every published preset and PERSIST_ROWS rows, equal as uint32 to
+    blind_rotate_ref on the first of PERSIST_REPS fresh inputs and to the
+    loop on every one, one blind_rotate.persistent and no rotdec launch a
+    rotation; one AES-128 block at batch 1 (the aes128_b1 cell's shape)
+    through run_schedule: the block right, a persistent launch for each
+    of its 257 rotations and no rotdec launch; then the loop and the
+    persistent kernel timed a step at tfhepp_128bit
+    (benchmarks.rotation.measure_paths). Returns the kernels line's
+    blind_rotate_persistent entry."""
+    import torch
+    import cufhe_tpu_torch as T
+    from cufhe_tpu_torch import _build
+    from cufhe_tpu_torch.benchmarks import aes
+    from cufhe_tpu_torch.benchmarks import rotation as RT
+    from cufhe_tpu_torch.ops import blind_rotate as BR
+    from cufhe_tpu_torch.utils.spans import counts
+
+    sms = _build.sms(torch.device(DEV))
+    max_err = checked = 0
+    for name in ("tfhepp_128bit", *FULL_PRESETS):
+        params = T.PRESETS[name]
+        depth = BR.kar_depth(params)
+        key = RT.random_keys(params, 900, DEV, [(4, depth)])[4, depth]
+        lp = params.lvl1
+        for rows in PERSIST_ROWS:
+            grid = BR.rotation_plan(rows, lp.n, lp.k + 1, key.shape[1], sms,
+                                    depth)[1]
+            if not grid:
+                raise AssertionError(f"{name}, {rows} rows: the loop, where "
+                                     f"the persistent kernel should run")
+            for rep in range(PERSIST_REPS):
+                acc, abar = RT.random_rotation_inputs(params, rows,
+                                                      901 + 1000 * rep, DEV)
+                before = counts()
+                got = BR.blind_rotate_cuda(acc, abar, key, params)
+                launched = counts() - before
+                want = (BR.blind_rotate_ref(acc, abar, key, params)
+                        if rep == 0 else
+                        BR._blind_rotate_cuda(acc, abar, key, params, depth,
+                                              grid=0))
+                err = u32_max_abs_err(got, want)
+                if (err or launched["blind_rotate.persistent"] != 1
+                        or launched["rotdec"]):
+                    raise AssertionError(
+                        f"persistent rotation at {name}, {rows} rows, "
+                        f"input {rep}: max_abs_err {err}, launches "
+                        f"{dict(launched)}")
+                max_err = max(max_err, err)
+                checked += 1
+        log(f"persistent rotation at {name}, {', '.join(map(str, PERSIST_ROWS))}"
+            f" rows: equal as uint32 to the plain version and to the loop on "
+            f"{PERSIST_REPS} inputs each, one persistent launch and no rotdec "
+            f"launch a rotation")
+        del key
+
+    before = counts()
+    rec = aes.run(ctx, sk, 1)
+    launched = counts() - before
+    log(f"AES-128 at batch 1 through run_schedule, {ctx.params.name}: block "
+        f"errors {rec['block_errors']}, {rec['rotation_launches']} rotations, "
+        f"{launched['blind_rotate.persistent']} persistent launches, "
+        f"{launched['rotdec']} rotdec launches; {rec['seconds'] * 1e3:.1f} ms "
+        f"a block {tag}")
+    if (rec["block_errors"] or rec["rotation_launches"] != AES_LEVELS
+            or launched["blind_rotate.persistent"] != AES_LEVELS
+            or launched["rotdec"]):
+        raise AssertionError("AES-128 at batch 1: want every rotation on the "
+                             "persistent kernel")
+
+    paths = RT.measure_paths(T.TFHEPP_128, PATHS_ROWS)
+    for r in paths:
+        log(f"rotation a step at {r['params']}, {r['rows']} rows (takes "
+            f"{r['takes']}): loop {r['loop_us_a_step']:.2f} us, persistent "
+            f"{r['persistent_us_a_step']:.2f} us "
+            f"({100 * r['persistent_over_loop']:.1f} % of the loop), bound "
+            f"{r['bound_us_a_step']:.2f} us ({r['bound_by']}), plain "
+            f"{r['plain_ms']:.0f} ms a rotation {tag}")
+    return {"name": "blind_rotate_persistent", "route": "cuda",
+            "instruction": "wgmma", "source": SOURCE, "replaces": REPLACES,
+            "checked": checked, "max_abs_err": max_err,
+            "launches_aes": launched["blind_rotate.persistent"],
+            "aes_block_ms": rec["seconds"] * 1e3,
+            "us_a_step": {r["rows"]: [r["loop_us_a_step"],
+                                      r["persistent_us_a_step"],
+                                      r["bound_us_a_step"]] for r in paths}}
+
+
 def phase_profile(ctx, sk, tag: str) -> None:
     """10. One lvl0 NAND at batch 4096 under torch.profiler: device time
     and launches of the product kernel, of rotdec_kernel and of the key
@@ -1658,7 +1773,7 @@ def main() -> int:
                  "mxu_peak_kernel", "mxu_peak_wgmma_kernel"):
         if not any(name.split("<")[0] == want for name, _, _ in report):
             raise AssertionError(f"no ptxas report for {want}")
-    for want in EXTPROD_INSTANCES:
+    for want in EXTPROD_INSTANCES + PERSISTENT_INSTANCES:
         if not any(name == want for name, _, _ in report):
             raise AssertionError(f"no ptxas report for {want}")
     for line in ptxas_warnings(build_log):
@@ -1750,7 +1865,8 @@ def main() -> int:
         f"gates/s ({dt * 1e3:.1f} ms per batch, reps "
         f"{[round(t * 1e3, 1) for t in times]} ms) {tag}")
     if (errors or launches != gates or ks_launches != gates
-            or rotdec_launches != gates * T.TFHEPP_128.n0):
+            or rotdec_launches != gates * T.TFHEPP_128.n0
+            or launched["blind_rotate.persistent"]):
         raise AssertionError("main path failed its checks")
     p5 = (bits0, bits1, a, b, first, out, gate_rate)
 
@@ -1871,6 +1987,8 @@ def main() -> int:
     mesh_launches_run = phase("18", phase_mesh, ctx, sk, ek, p5, adder, tag)
     # 20. the reduced-precision pallas3 path, on phase 5's inputs
     pallas3 = phase("20", phase_pallas3, ek, sk, p5, tag)
+    # 21. the persistent rotation, on phase 4's context
+    persistent = phase("21", phase_persistent, ctx, sk, tag)
     # 14. the key lifecycle, last: it swaps the context's preset
     phase("14", phase_lifecycle, ctx, sk, ek, eks["concrete"], tag)
     log("host seconds per phase: " + ", ".join(
@@ -1913,7 +2031,8 @@ def main() -> int:
          "replaces": PROBE_REPLACES, **probe["mma_sync"]},
         {"name": "mxu_peak_wgmma", "route": "cuda", "source": WGMMA_SOURCE,
          "replaces": PROBE_REPLACES, **probe["wgmma"]},
-        {key: v for key, v in pallas3.items() if key != "noise"}]}))
+        {key: v for key, v in pallas3.items() if key != "noise"},
+        persistent]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -44,7 +44,7 @@ _I, _U, _P = ctypes.c_int, ctypes.c_uint, ctypes.c_void_p
 #: every launch entry's arguments before the stream handle, which each takes
 #: last; each returns a cudaError_t (0 on success)
 _ENTRIES = {
-    "cufhe_blind_rotate": [_P] * 4 + [_I] * 11 + [_U, _I],
+    "cufhe_blind_rotate": [_P] * 4 + [_I] * 11 + [_U, _I, _I, _P],
     "cufhe_rotdec": [_P] * 3 + [_I] * 9 + [_U],
     "cufhe_key_switch": [_P, _P, _I, _P, _I, _P] + [_I] * 5 + [_U, _I, _I],
     "cufhe_mxu_peak": [_I] + [_P] * 4 + [_I] * 5,

@@ -8,6 +8,8 @@ shape per step.
 
     python -m cufhe_tpu_torch.benchmarks.rotation [--params tfhepp_128bit]
         [--batch 4096] [--reps 2]
+    python -m cufhe_tpu_torch.benchmarks.rotation --paths
+        [--rows 1,48,160,480,2048] [--params tfhepp_128bit] [--reps 3]
 
 All cases run on the same random accumulators and uint32 key, once each,
 then timed with CUDA events (utils.timing.time_fn), one rotation a pair,
@@ -19,6 +21,15 @@ is fhebench/roofline.py's count, fixed whatever implements the product
 (two levels of Karatsuba), so no case reads above 100 %. Prints one JSON
 line per case with the card's name and power limit; exits 2 without a
 CUDA device.
+
+--paths times the two launches of the exact rotation at the set's own
+depth beside each other at each row count (measure_paths): the loop of
+2 n0 launches (rotdec_kernel, extprod_kernel) and the one persistent
+launch (persistent_extprod_kernel, ops.blind_rotate.rotation_plan's grid,
+or the card's SM count where the plan takes the loop), in turns, as time
+a step against the bound a step, with the plain version's time and which
+launch rotation_plan takes there; each case is first held equal to the
+other launch.
 """
 from __future__ import annotations
 
@@ -180,6 +191,57 @@ def measure(params, rows: int, reps: int = 2, seed: int = 40) -> list:
     return recs
 
 
+def measure_paths(params, rows_list, reps: int = 3, seed: int = 50) -> list:
+    """One record per row count: the loop's and the persistent kernel's
+    median ms a rotation over 2*reps timed rotations in turns (CUDA
+    events), each a step (over n0) beside the bound a step, the plain
+    version's ms (one rotation), and the launch rotation_plan takes."""
+    from .._build import sms
+    from ..ops import blind_rotate as BR
+    from ..ops.limbs import decomp_digit_limb_plan
+    depth = BR.kar_depth(params)
+    key = random_keys(params, seed + 1, "cuda", [(4, depth)])[(4, depth)]
+    lp = params.lvl1
+    I = (lp.k + 1) * lp.l * decomp_digit_limb_plan(lp.Bgbit)[0]
+    cards = sms(torch.device("cuda"))
+    n0 = params.lvl0.dim
+    recs = []
+    for rows in rows_list:
+        acc, abar = random_rotation_inputs(params, rows, seed, "cuda")
+        split, grid = BR.rotation_plan(rows, lp.n, lp.k + 1, I, cards, depth)
+        launch = {"loop": 0, "persistent": grid or cards}
+
+        def run(name):
+            return BR._blind_rotate_cuda(acc, abar, key, params, depth,
+                                         grid=launch[name])
+
+        if not torch.equal(run("loop"), run("persistent")):
+            raise AssertionError(f"{params.name}, {rows} rows: the "
+                                 f"persistent rotation differs from the loop")
+        times = {name: [] for name in launch}
+        for _ in range(reps):
+            for name in ("loop", "persistent", "persistent", "loop"):
+                times[name].append(time_fn(run, name, iters=1, warmup=0)
+                                   * 1e3)
+        macs, nbytes = rotation_work(params, rows)
+        bound_ms, bound_by = bound(2 * macs, nbytes)
+        plain_ms = time_fn(BR.blind_rotate_ref, acc, abar, key, params,
+                           iters=1, warmup=0) * 1e3
+        rec = {"params": params.name, "rows": rows, "depth": depth,
+               "split": split, "grid": grid,
+               "takes": "persistent" if grid else "loop",
+               "bound_us_a_step": 1e3 * bound_ms / n0, "bound_by": bound_by,
+               "plain_ms": plain_ms}
+        for name, ts in times.items():
+            ms = statistics.median(ts)
+            rec[f"{name}_ms"] = ms
+            rec[f"{name}_us_a_step"] = 1e3 * ms / n0
+            rec[f"{name}_share_of_bound"] = bound_ms / ms
+        rec["persistent_over_loop"] = rec["persistent_ms"] / rec["loop_ms"]
+        recs.append(rec)
+    return recs
+
+
 def main() -> int:
     from ..params import PRESETS
     from ._common import device_record, require_cuda
@@ -188,9 +250,18 @@ def main() -> int:
     ap.add_argument("--params", default="tfhepp_128bit")
     ap.add_argument("--batch", type=int, default=4096)
     ap.add_argument("--reps", type=int, default=2)
+    ap.add_argument("--paths", action="store_true",
+                    help="the loop against the persistent kernel a step")
+    ap.add_argument("--rows", default="1,48,160,480,2048",
+                    help="row counts of --paths")
     args = ap.parse_args()
     dev = device_record()
-    for rec in measure(PRESETS[args.params], args.batch, args.reps):
+    recs = (measure_paths(PRESETS[args.params],
+                          [int(r) for r in args.rows.split(",")],
+                          max(args.reps, 1))
+            if args.paths else
+            measure(PRESETS[args.params], args.batch, args.reps))
+    for rec in recs:
         print(json.dumps({**rec, "device": dev}), flush=True)
     return 0
 

@@ -9,7 +9,9 @@
 // over a batch of B accumulators [B, k+1, N]. All torus arithmetic is
 // uint32_t, whose wrap is the reduction mod 2^32; the int32 tensors of the
 // caller are reinterpreted as uint32_t. Two kernels per step, launched in
-// order on the caller's stream: rotdec_kernel, then extprod_kernel.
+// order on the caller's stream: rotdec_kernel, then extprod_kernel; or,
+// at small batches, one persistent_extprod_kernel that walks all n0 steps
+// (the end of this note).
 //
 // rotdec_kernel replaces the Pallas kernel's rotdec closure
 // (pallas_br.py:428-487). For each row (b, j < k+1) and coefficient t < N:
@@ -149,7 +151,7 @@
 //    them to the 2^D quarters the leaf feeds, held per thread in shared
 //    memory (32 KB a quarter, beside the ring); after its range it adds
 //    each quarter it touched to acc with one red.global.add an output, as
-//    the depth-0 kernel does. Still two launches a step.
+//    the depth-0 kernel does.
 //  - Where the contraction is split (small batches), ops/blind_rotate.py:
 //    extprod_plan cuts it into a multiple of 3^D ranges, so no range
 //    straddles two leaves.
@@ -160,8 +162,40 @@
 // way there: 4-byte quarter stores instead of 16-byte ones, 0.236 ms; the
 // next leaf's first wgmma overwriting the sums (scale-d 0) in place of
 // zeroing them in the fold, 0.245 ms.
-// A persistent kernel that keeps acc on chip across the n0 steps and TMA
-// multicast of the dec tile across a cluster are later work.
+//
+// The persistent rotation, persistent_extprod_kernel<NL, SEG, D, L, ND>.
+// Where the step's output tiles x batch tiles leave SMs idle (small
+// batches; ops/blind_rotate.py:rotation_plan takes it exactly where
+// extprod_plan splits the contraction), the loop's launches cost more
+// than their work: each pays the launch, its blocks' prologue and the
+// ring's first fill, and rotdec a launch of its own; an AES-128 block at
+// batch 1 is 257 rotations of 2 x 636 launches. So one cooperative launch
+// of at most one block an SM walks all n0 steps, each in two phases that
+// grid-wide barriers separate (grid_sync: a counter the wrapper zeroes,
+// arrivals released and polled with acquire at gpu scope):
+//  1. rotate-and-decompose: the two consumer warpgroups (256 threads, as
+//     rotdec_kernel's block) run rotdec_rows, rotdec_kernel's device code,
+//     over the step's blocks of rows strided by gridDim.x, staging rows
+//     where the quarters live in phase 2; acc arrives by cp.async.cg,
+//     through L2, never a stale L1. Meanwhile the producer prefetches the
+//     block's share of the step's key into L2. dec's generic stores are
+//     fenced (fence.proxy.async) before the barrier: phase 2 reads dec by
+//     TMA, the async proxy.
+//  2. the product: the step's output tiles x batch tiles x stages, cut
+//     into gridDim.x equal shares of stages (for_share, as stream-K
+//     cuts a GEMM: every block does the same work, where extprod_plan's
+//     ranges leave some blocks an item more than others); a share's part
+//     of a tile is one item, a range of its stages, run by ext_produce and
+//     ext_consume, the one item of an extprod_kernel block. The ring's
+//     slots and parities carry on from item to item and step to step, and
+//     each item adds its partial sums to acc with red.global.add, as
+//     there: adds mod 2^32 are exact in any order and grouping.
+// The result is the same uint32 words as the loop's: the same digits,
+// leaves, limb sums and adds mod 2^32. L and ND unroll rotdec's digit
+// loops for the two published sets it runs on (tfhepp_128bit and
+// concrete), <0, 0> elsewhere.
+// TMA multicast of the dec tile across a cluster is later work.
+#include <algorithm>
 #include <climits>
 #include <cstddef>
 #include <cstdint>
@@ -198,6 +232,10 @@ constexpr int kBTile = kRowTile * kStageK;         // dec bytes a stage
 constexpr int kAcc = kRowTile / 2;                 // int32 sums a thread, limb
 constexpr int kMaxKar = 2;                         // deepest Karatsuba tree
 constexpr int kMinLeaf = 128;                      // least leaf coefficients
+constexpr int kMaxSmem = 232448;                   // shared memory of a block
+// the persistent kernel's shares end at a leaf's end within this many
+// stages of their even cut (share_cut)
+constexpr int kShareSnap = 2;
 
 __host__ __device__ constexpr int pow3(int d) {
   return d == 0 ? 1 : 3 * pow3(d - 1);
@@ -255,7 +293,7 @@ struct Ext {
   static_assert(D >= 0 && D <= kMaxKar, "Karatsuba depth");
   static_assert(D == 0 || (SEG == kStageK && NL == kLimbs),
                 "leaves of at least 128 coefficients, exact keys");
-  static_assert(kSmem <= 232448, "shared memory of one block");
+  static_assert(kSmem <= kMaxSmem, "shared memory of one block");
 };
 
 // 16-byte copy to shared memory; src_bytes = 0 fills the 16 bytes with zeros
@@ -327,48 +365,64 @@ struct Leaves<0> {
   }
 };
 
+// rotdec's arguments beside its pointers: nrows = B * kp1 rows of N =
+// 2^nbit coefficients, 1 << tpr_log threads a row, the decomposition (l,
+// Bgbit, nd sub-digits of dbits bits) and its offset.
+struct RotArgs {
+  int nrows, nbit, tpr_log, kp1, l, Bgbit, nd, dbits;
+  uint32_t off;
+};
+
+// The kRotThreads threads that run rotdec_rows meet here: rotdec_kernel's
+// block, or the persistent kernel's two consumer warpgroups (named barrier
+// 1; barrier 0 is the whole block's).
+__device__ __forceinline__ void rot_sync() {
+  asm volatile("bar.sync 1, %0;\n" :: "n"(kRotThreads) : "memory");
+}
+
 // dec for one step: the rows (b, j) of acc [B, kp1, N] rotated by
 // X^abar_i[b], minus themselves, offset and decomposed: [B, I, N] int8 at
 // D = 0; at Karatsuba depth D > 0 the leaf operands [B, 3^D, I, N >> D].
-// Block x owns rows x * rows .. x * rows + rows-1 of the nrows = B * kp1,
-// with rows = kRotThreads >> tpr_log and 1 << tpr_log threads a row, and
-// holds them in shared memory (rows * N * 4 bytes). L and ND are l and nd
-// where they are known at compile time (the published sets), 0 where not.
+// Block blk of rotdec's grid owns rows blk * rows .. blk * rows + rows-1 of
+// the nrows, with rows = kRotThreads >> tpr_log and 1 << tpr_log threads a
+// row; its kRotThreads threads (t = 0 ..) hold them in shared memory at
+// srow (rows * N * 4 bytes). L and ND are l and nd where they are known at
+// compile time (the published sets), 0 where not.
 template <int L, int ND, int D>
-__global__ void __launch_bounds__(kRotThreads)
-rotdec_kernel(const uint32_t* __restrict__ acc,
-              const int32_t* __restrict__ abar_i, int8_t* __restrict__ dec,
-              int nrows, int nbit, int tpr_log, int kp1, int l_rt, int Bgbit,
-              int nd_rt, int dbits, uint32_t off) {
-  extern __shared__ __align__(16) uint32_t srow[];
+__device__ __forceinline__ void rotdec_rows(
+    const uint32_t* __restrict__ acc, const int32_t* __restrict__ abar_i,
+    int8_t* __restrict__ dec, const RotArgs& a, int blk, int t,
+    uint32_t* srow) {
   constexpr int kLeaves = pow3(D);
-  const int l = L ? L : l_rt;
-  const int nd = ND ? ND : nd_rt;
+  const int l = L ? L : a.l;
+  const int nd = ND ? ND : a.nd;
+  const int nbit = a.nbit;
+  const int tpr_log = a.tpr_log;
   const int N = 1 << nbit;
   const int rows = kRotThreads >> tpr_log;
-  const int row0 = blockIdx.x * rows;
-  const int here = min(rows, nrows - row0);
+  const int row0 = blk * rows;
+  const int here = min(rows, a.nrows - row0);
   const uint32_t sbase = smem_u32(srow);
   const uint32_t* src = acc + static_cast<size_t>(row0) * N;
-  for (int c = threadIdx.x; c < (here << (nbit - 2)); c += kRotThreads)
+  for (int c = t; c < (here << (nbit - 2)); c += kRotThreads)
     cp_async16(sbase + 16 * c, src + 4 * c, 16);
   cp_async_commit();
-  const int rr = threadIdx.x >> tpr_log;
+  const int rr = t >> tpr_log;
   const int row = row0 + rr;
-  const int b = row / kp1;
-  const int j = row - b * kp1;
+  const int b = row / a.kp1;
+  const int j = row - b * a.kp1;
   // read while the copy is in flight
   const uint32_t ab = rr < here ? static_cast<uint32_t>(abar_i[b]) : 0u;
   cp_async_wait<0>();
-  __syncthreads();
+  rot_sync();
   if (rr >= here) return;
 
-  const int lane = threadIdx.x & ((1 << tpr_log) - 1);
+  const int lane = t & ((1 << tpr_log) - 1);
   const int qmask = (N >> 2) - 1;
-  const uint32_t mask = (1u << Bgbit) - 1u;
-  const int half = 1 << (Bgbit - 1);
-  const int dhalf = 1 << (dbits - 1);
-  const int dmask = (1 << dbits) - 1;
+  const uint32_t mask = (1u << a.Bgbit) - 1u;
+  const int half = 1 << (a.Bgbit - 1);
+  const int dhalf = 1 << (a.dbits - 1);
+  const int dmask = (1 << a.dbits) - 1;
   const uint32_t low = ab & static_cast<uint32_t>(N - 1);
   const bool hi = (ab >> nbit) & 1u;
   const uint4* s4 = reinterpret_cast<const uint4*>(srow + (rr << nbit));
@@ -379,19 +433,19 @@ rotdec_kernel(const uint32_t* __restrict__ acc,
   // the one leaf is the row itself)
   constexpr int kQ = 1 << D;
   const int lq = (qmask + 1) >> D;  // quads of a leaf
-  const size_t vstride = static_cast<size_t>(kp1) * l * nd * lq;
+  const size_t vstride = static_cast<size_t>(a.kp1) * l * nd * lq;
   uint32_t* out = reinterpret_cast<uint32_t*>(
-      dec + (static_cast<size_t>(b) * kLeaves * kp1 * l * nd + j * l * nd) *
-                (N >> D));
+      dec + (static_cast<size_t>(b) * kLeaves * a.kp1 * l * nd +
+             j * l * nd) * (N >> D));
   for (int qq = lane; qq < lq; qq += 1 << tpr_log) {
     uint32_t temp[kQ][4];
 #pragma unroll
     for (int k = 0; k < kQ; ++k)
-      rot_quad(s4, qq + k * lq, qlow, qmask, sh, low, hi, off, temp[k]);
+      rot_quad(s4, qq + k * lq, qlow, qmask, sh, low, hi, a.off, temp[k]);
     uint32_t* o = out + qq;
 #pragma unroll
     for (int d = 0; d < l; ++d) {
-      const int shift = 32 - (d + 1) * Bgbit;
+      const int shift = 32 - (d + 1) * a.Bgbit;
       int dig[kQ][4];
 #pragma unroll
       for (int k = 0; k < kQ; ++k)
@@ -409,7 +463,7 @@ rotdec_kernel(const uint32_t* __restrict__ acc,
             part[e] = dig[k][e];  // the last sub-digit takes the rest
             if (dl < nd - 1) {
               part[e] = ((dig[k][e] + dhalf) & dmask) - dhalf;
-              dig[k][e] = (dig[k][e] - part[e]) >> dbits;
+              dig[k][e] = (dig[k][e] - part[e]) >> a.dbits;
             }
           }
           p[k] = pack4(part);
@@ -424,8 +478,18 @@ rotdec_kernel(const uint32_t* __restrict__ acc,
   }
 }
 
-using RotdecFn = void (*)(const uint32_t*, const int32_t*, int8_t*, int, int,
-                          int, int, int, int, int, int, uint32_t);
+// One step's rotate-and-decompose: block x runs rotdec_rows' block x.
+template <int L, int ND, int D>
+__global__ void __launch_bounds__(kRotThreads)
+rotdec_kernel(const uint32_t* __restrict__ acc,
+              const int32_t* __restrict__ abar_i, int8_t* __restrict__ dec,
+              const RotArgs a) {
+  extern __shared__ __align__(16) uint32_t srow[];
+  rotdec_rows<L, ND, D>(acc, abar_i, dec, a, blockIdx.x, threadIdx.x, srow);
+}
+
+using RotdecFn = void (*)(const uint32_t*, const int32_t*, int8_t*,
+                          RotArgs);
 
 // rotdec_kernel's launch shape for rows of N = 2^nbit coefficients.
 struct RotdecPlan {
@@ -444,35 +508,46 @@ RotdecFn rotdec_instance(int l, int nd) {
                              : rotdec_kernel<0, 0, D>;
 }
 
-// The plan for N = 2^nbit, (l, nd) and Karatsuba depth D, with the
-// kernel's shared memory limit raised to it (once per C call, not per
-// step). A thread takes 2^D quads a leaf quad, at least kRotQuads in all
-// where the row is long enough.
-cudaError_t rotdec_plan(int nbit, int l, int nd, int depth,
-                        RotdecPlan* plan) {
-  plan->kernel = depth == 2   ? rotdec_instance<2>(l, nd)
-                 : depth == 1 ? rotdec_instance<1>(l, nd)
-                              : rotdec_instance<0>(l, nd);
+// The plan for N = 2^nbit, (l, nd) and Karatsuba depth D. A thread takes
+// 2^D quads a leaf quad, at least kRotQuads in all where the row is long
+// enough.
+RotdecPlan rotdec_plan(int nbit, int l, int nd, int depth) {
+  RotdecPlan plan;
+  plan.kernel = depth == 2   ? rotdec_instance<2>(l, nd)
+                : depth == 1 ? rotdec_instance<1>(l, nd)
+                             : rotdec_instance<0>(l, nd);
   int tpr_log = nbit - 2 - depth;                  // one thread a leaf quad
   while ((1 << tpr_log) > kRotThreads ||
          (tpr_log > 0 && (1 << (nbit - 2 - tpr_log)) < kRotQuads))
     --tpr_log;
-  plan->tpr_log = tpr_log;
-  plan->rows = kRotThreads >> tpr_log;
-  plan->smem = plan->rows * (4 << nbit);
+  plan.tpr_log = tpr_log;
+  plan.rows = kRotThreads >> tpr_log;
+  plan.smem = plan.rows * (4 << nbit);
+  return plan;
+}
+
+// The kernel's shared memory limit raised to the plan's (once per C call,
+// not per step).
+cudaError_t rotdec_smem(const RotdecPlan& plan) {
   return cudaFuncSetAttribute(
-      plan->kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, plan->smem);
+      plan.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem);
+}
+
+RotArgs rot_args(const RotdecPlan& plan, int B, int nbit, int kp1, int l,
+                 int Bgbit, int nd, int dbits, uint32_t off) {
+  return RotArgs{B * kp1, nbit, plan.tpr_log, kp1, l, Bgbit, nd, dbits, off};
+}
+
+// rotdec's blocks (of plan.rows rows) for B rows of kp1 components.
+int rotdec_blocks(const RotdecPlan& plan, int B, int kp1) {
+  return (B * kp1 + plan.rows - 1) / plan.rows;
 }
 
 // One rotdec_kernel launch (one step) on `s`.
 cudaError_t launch_rotdec(const RotdecPlan& plan, const uint32_t* acc,
-                          const int32_t* abar_i, int8_t* dec, int B,
-                          int nbit, int kp1, int l, int Bgbit, int nd,
-                          int dbits, uint32_t off, cudaStream_t s) {
-  const int nrows = B * kp1;
-  plan.kernel<<<(nrows + plan.rows - 1) / plan.rows, kRotThreads, plan.smem,
-                s>>>(acc, abar_i, dec, nrows, nbit, plan.tpr_log, kp1, l,
-                     Bgbit, nd, dbits, off);
+                          const int32_t* abar_i, int8_t* dec,
+                          const RotArgs& a, int blocks, cudaStream_t s) {
+  plan.kernel<<<blocks, kRotThreads, plan.smem, s>>>(acc, abar_i, dec, a);
   return cudaGetLastError();
 }
 
@@ -535,15 +610,355 @@ __device__ __forceinline__ void red_add(uint32_t* p, uint32_t v) {
                : "memory");
 }
 
+// One step of the product in extprod_kernel's terms: B rows of kp1
+// components of N coefficients, LN = N >> D a leaf, KB = I * LN
+// contraction bytes a leaf, S = ceil(KB / 128) stages a leaf and T =
+// 3^D * S a step.
+struct ExtStep {
+  int B, N, kp1, LN, KB, S, T;
+};
+
+template <int D>
+__device__ __forceinline__ ExtStep ext_step(int B, int N, int kp1, int I) {
+  ExtStep st;
+  st.B = B;
+  st.N = N;
+  st.kp1 = kp1;
+  st.LN = N >> D;                                  // coefficients a leaf
+  st.KB = I * st.LN;                               // contraction bytes a leaf
+  st.S = (st.KB + kStageK - 1) / kStageK;          // stages a leaf
+  st.T = st.S * pow3(D);
+  return st;
+}
+
+// One work item of a step: tile (x, y), i.e. leaf outputs go = o*LN + c in
+// [go0, go0 + 128) and batch rows [b0, b0 + 64), over stages [s0, s1) of
+// the step's T; its 32-output groups and its runs of SEG outputs that
+// exist (group 2*warpgroup + hi, see the consumer).
+struct ExtItem {
+  int go0, b0, s0, s1, groups, runs;
+};
+
+template <int SEG>
+__device__ __forceinline__ ExtItem ext_item(const ExtStep& st, int x, int y,
+                                            int s0, int s1) {
+  ExtItem it;
+  it.go0 = x * kOutTile;
+  it.b0 = y * kRowTile;
+  it.s0 = s0;
+  it.s1 = s1;
+  it.groups = min(kOutTile / kGroup, (st.kp1 * st.LN - it.go0) / kGroup);
+  it.runs = min(kOutTile / SEG, (st.kp1 * st.LN - it.go0) / SEG);
+  return it;
+}
+
+// Where for_share cuts the step's units (tile-major stages) between blocks
+// b - 1 and b: at b/G of them, moved to the nearest end of a leaf (S
+// stages) within kShareSnap stages, as a range that cuts a leaf folds it
+// twice (about two stages each, as timed on an H100: PERF.md).
+// Non-decreasing in b.
+__device__ __forceinline__ int share_cut(int units, int S, int b) {
+  const int u = static_cast<int>(static_cast<long long>(units) * b /
+                                 gridDim.x);
+  const int r = u % S;
+  return r <= kShareSnap ? u - r : S - r <= kShareSnap ? u + S - r : u;
+}
+
+// The items of a step's product that this block takes in the persistent
+// kernel: the step's nx * ny tiles x T stages, tile-major, cut into
+// gridDim.x shares of stages, equal but for share_cut's snap; the share's
+// part of each tile it meets is one item, a range of that tile's stages
+// (it may cut a leaf: the consumer folds at every leaf's end and at the
+// range's). fn(item) for each, in order. Every block does about the same
+// work, where extprod_plan's ranges leave some blocks one more item than
+// others.
+template <int SEG, typename Fn>
+__device__ __forceinline__ void for_share(const ExtStep& st, int nx, int ny,
+                                          Fn&& fn) {
+  const int units = nx * ny * st.T;
+  const int u1 = share_cut(units, st.S, blockIdx.x + 1);
+  for (int u = share_cut(units, st.S, blockIdx.x); u < u1;) {
+    const int tile = u / st.T;
+    const int t0 = tile * st.T;
+    const int s1 = min(st.T, u1 - t0);
+    fn(ext_item<SEG>(st, tile % nx, tile / nx, u - t0, s1));
+    u = t0 + s1;
+  }
+}
+
+// A position in the ring: its slot and the parity its barrier waits for.
+struct Ring {
+  int slot;
+  uint32_t parity;
+  __device__ __forceinline__ void next() {
+    if (++slot == kStages) {
+      slot = 0;
+      parity ^= 1;
+    }
+  }
+};
+
+// The ring's barriers: full i (one arrival, the producer's, and the
+// stage's bytes) at full0 + 8i, empty i (one arrival a consumer warp) at
+// empty0 + 8i. Thread 0 inits them; the block waits.
+__device__ __forceinline__ void ring_init(uint32_t full0, uint32_t empty0) {
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(full0 + 8 * i, 1);
+      mbar_init(empty0 + 8 * i, 4 * kConsumers);  // one per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// The producer warp's part of one item (lane: the lane in the warp): the
+// dec tile by TMA, the key windows by bulk copies, stage by stage into the
+// ring, from ring position pos on.
+template <int NL, int SEG, int D>
+__device__ __forceinline__ void ext_produce(
+    const CUtensorMap* tma_dec, const int8_t* __restrict__ bk_i,
+    uint32_t base, uint32_t full0, uint32_t empty0, int lane,
+    const ExtStep& st, const ExtItem& it, Ring& pos) {
+  using E = Ext<NL, SEG, D>;
+  const int LN = st.LN, kp1 = st.kp1;
+  for (int s = it.s0; s < it.s1; ++s) {
+    const uint32_t sa = base + pos.slot * E::kStageBytes;
+    const uint32_t full = full0 + 8 * pos.slot;
+    const int v = D > 0 ? s / st.S : 0;            // the stage's leaf
+    const int sv = s - v * st.S;                   // its stage in the leaf
+    // key rows of the stage inside the contraction
+    const int segs =
+        min(E::kSegs, (st.KB - sv * kStageK + SEG - 1) / SEG);
+    mbar_wait(empty0 + 8 * pos.slot, pos.parity);
+    if (lane == 0) {
+      mbar_arrive_tx(full, kBTile + segs * it.runs * NL * E::kWin);
+      tma_load(sa, tma_dec, full, s * kStageK, it.b0);
+    }
+    __syncwarp();
+    for (int wi = lane; wi < E::kWins; wi += 32) {
+      const int li = wi % NL;
+      const int run = wi / NL % E::kRuns;
+      const int seg = wi / NL / E::kRuns;
+      if (seg >= segs || run >= it.runs) continue;
+      const int p = sv * kStageK + seg * SEG;
+      const int r = p / LN;
+      const int t0 = p - r * LN;
+      const int go = it.go0 + SEG * run;
+      const int o = go / LN;
+      const int c0 = go - o * LN;
+      const int8_t* src =
+          bk_i +
+          ((static_cast<size_t>(r) * kp1 + o) * NL + li) * E::kLeaves *
+              2 * LN +
+          2 * LN * v + (LN + c0 - t0 - SEG);
+      bulk_load(sa + kBTile + wi * E::kWinStride, src, E::kWin, full);
+    }
+    pos.next();
+  }
+}
+
+// A consumer warpgroup's part of one item (tid: the thread in the block,
+// warpgroup tid / 128: outputs go0 + 64 wg .. + 63, NL limbs): each stage's
+// A registers from the key windows, its wgmma, and at the end acc += the
+// sums with red.global.add, from ring position pos on. quarters: the block's
+// quarter sums at D > 0 (each thread its own words).
+template <int NL, int SEG, int D>
+__device__ __forceinline__ void ext_consume(
+    uint32_t* __restrict__ acc, const uint8_t* ring, uint32_t base,
+    uint32_t full0, uint32_t empty0, uint4* quarters, int tid,
+    const ExtStep& st, const ExtItem& it, Ring& pos) {
+  using E = Ext<NL, SEG, D>;
+  const int wg = tid / 128;
+  const int lane = tid & 31;
+  const int warp = (tid >> 5) & 3;
+  const int g = lane >> 2, q = lane & 3;
+  const bool lo_ok = 2 * wg < it.groups;          // outputs past (k+1)N
+  const bool hi_ok = 2 * wg + 1 < it.groups;      // have zero fragments
+  // Register 2*h2 + hi of lane (g, q) at k-step kq of a key row holds
+  // output u = 32*hi + 8*warp + g of the warpgroup's 64 and contraction
+  // bytes k = 32kq + 16h2 + 4q + e (e = 0..3) of the row's SEG: bytes
+  // x = u' - k + SEG of the window of u's run, u' = u's place in the run,
+  // i.e. bytes xa+3 .. xa with xa = 4m + sh, sh = (g + 1) mod 4 and m =
+  // at[hi] - 8kq - 4h2 (at[hi]: the word of h2 = kq = 0 in the window of
+  // limb 0 and the stage's first key row); __byte_perm of words m and
+  // m+1 with selector sel puts them in order.
+  const int sh = (g + 1) & 3;
+  const uint32_t sel = (sh + 3) | ((sh + 2) << 4) | ((sh + 1) << 8) |
+                       (sh << 12);
+  const int m0 = 2 * warp + SEG / 4 - q + ((g + 1) >> 2) - 1;
+  constexpr int kW = E::kWinStride / 4;            // words a window
+  int at[2];
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const int u0 = kWgOut * wg + kGroup * hi;      // in the block's 128
+    at[hi] = u0 / SEG * NL * kW + u0 % SEG / 4 + m0;
+  }
+  int sums[NL][kAcc];
+#pragma unroll
+  for (int li = 0; li < NL; ++li) {
+#pragma unroll
+    for (int e = 0; e < kAcc; ++e) sums[li][e] = 0;
+    reg_fence(sums[li]);
+  }
+  uint32_t frag[kStageK / 32][NL][4];
+  // D > 0: the uint32 sums of the thread's outputs in each quarter, four
+  // a 16-byte word, at [qd][e / 4][tid] (consecutive threads,
+  // consecutive words), and the quarters the range has written (the
+  // same for every thread)
+  constexpr int kQStride = 128 * kConsumers;
+  uint32_t touched = 0;
+  for (int s = it.s0; s < it.s1; ++s) {
+    mbar_wait(full0 + 8 * pos.slot, pos.parity);
+    const uint32_t* win = reinterpret_cast<const uint32_t*>(
+        ring + pos.slot * E::kStageBytes + kBTile);
+    const uint64_t db = smem_desc(base + pos.slot * E::kStageBytes);
+#pragma unroll
+    for (int kk = 0; kk < kStageK / 32; ++kk) {
+      const int seg = kk / E::kSegSteps;
+      const int kq = kk % E::kSegSteps;
+#pragma unroll
+      for (int li = 0; li < NL; ++li) {
+        uint32_t (&f)[4] = frag[kk][li];
+        const uint32_t* w =
+            win + (seg * E::kRuns * NL + li) * kW - 8 * kq;
+        const uint32_t* wl = w + at[0];
+        f[0] = lo_ok ? __byte_perm(wl[0], wl[1], sel) : 0u;
+        f[2] = lo_ok ? __byte_perm(wl[-4], wl[-3], sel) : 0u;
+        if (kq > 0) {       // outputs c + 32 at kk are outputs c at kk-1
+          f[1] = frag[kk > 0 ? kk - 1 : 0][li][0];
+          f[3] = frag[kk > 0 ? kk - 1 : 0][li][2];
+        } else {
+          const uint32_t* wh = w + at[1];
+          f[1] = hi_ok ? __byte_perm(wh[0], wh[1], sel) : 0u;
+          f[3] = hi_ok ? __byte_perm(wh[-4], wh[-3], sel) : 0u;
+        }
+      }
+    }
+    // one group a stage: the fence, commit and wait are paid once for
+    // NL * 4 wgmma
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kStageK / 32; ++kk) {
+#pragma unroll
+      for (int li = 0; li < NL; ++li)
+        wgmma_rs(sums[li], frag[kk][li], db + 2 * kk);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    frag_fence(frag);
+    if (lane == 0) mbar_arrive(empty0 + 8 * pos.slot);   // the slot is free
+    pos.next();
+    if constexpr (D > 0) {
+      if (s + 1 == it.s1 || (s + 1) % st.S == 0) {  // the leaf's last stage
+#pragma unroll
+        for (int li = 0; li < NL; ++li) reg_fence(sums[li]);
+        const uint32_t feeds = leaf_quarters(s / st.S, D);
+        uint4 u[kAcc / 4];
+#pragma unroll
+        for (int j = 0; j < kAcc / 4; ++j) {
+          uint32_t w[4];
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            w[x] = 0;
+#pragma unroll
+            for (int li = 0; li < NL; ++li) {
+              w[x] += static_cast<uint32_t>(sums[li][4 * j + x])
+                      << (kLimbBits * (li + kLimbs - NL));
+              sums[li][4 * j + x] = 0;
+            }
+          }
+          u[j] = make_uint4(w[0], w[1], w[2], w[3]);
+        }
+#pragma unroll
+        for (int qd = 0; qd < E::kQuarters; ++qd) {
+          if (!((feeds >> qd) & 1u)) continue;
+          uint4* qs = quarters + qd * (kAcc / 4) * kQStride + tid;
+          if ((touched >> qd) & 1u) {
+#pragma unroll
+            for (int j = 0; j < kAcc / 4; ++j) {
+              const uint4 o = qs[j * kQStride];
+              qs[j * kQStride] = make_uint4(o.x + u[j].x, o.y + u[j].y,
+                                            o.z + u[j].z, o.w + u[j].w);
+            }
+          } else {
+#pragma unroll
+            for (int j = 0; j < kAcc / 4; ++j) qs[j * kQStride] = u[j];
+          }
+        }
+        touched |= feeds;
+#pragma unroll
+        for (int li = 0; li < NL; ++li) reg_fence(sums[li]);
+      }
+    }
+  }
+#pragma unroll
+  for (int li = 0; li < NL; ++li) reg_fence(sums[li]);
+
+  const int N = st.N, LN = st.LN;
+  const size_t row_stride = static_cast<size_t>(st.kp1) * N;
+  if constexpr (D > 0) {
+    // every quarter the range touched, added to acc once an output:
+    // element 2hi + x of quarters[qd][j] of this thread is output
+    // (o, qd*LN + c) with o*LN + c = go below, batch row b0 + 8j + 2q + x
+#pragma unroll
+    for (int qd = 0; qd < E::kQuarters; ++qd) {
+      if (!((touched >> qd) & 1u)) continue;
+      const uint4* qs = quarters + qd * (kAcc / 4) * kQStride + tid;
+      uint32_t* out[2];
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const int go = it.go0 + kWgOut * wg + kGroup * hi + 8 * warp + g;
+        const int o = go / LN;
+        out[hi] = acc + static_cast<size_t>(o) * N + qd * LN + (go - o * LN);
+      }
+#pragma unroll
+      for (int j = 0; j < kAcc / 4; ++j) {
+        const uint4 w = qs[j * kQStride];
+        const uint32_t v[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int hx = 0; hx < 4; ++hx) {
+          const int b = it.b0 + 8 * j + 2 * q + (hx & 1);
+          if (b >= st.B) continue;
+          red_add(out[hx >> 1] + b * row_stride, v[hx]);
+        }
+      }
+    }
+  } else {
+    // sums[li][4j + 2hi + x]: output 32*hi + 8*warp + g of the
+    // warpgroup's 64, batch row b0 + 8j + 2q + x
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      if (!(hi ? hi_ok : lo_ok)) continue;
+      const int go = it.go0 + kWgOut * wg + kGroup * hi + 8 * warp + g;
+      const int o = go / N;
+      uint32_t* out = acc + static_cast<size_t>(o) * N + (go - o * N);
+#pragma unroll
+      for (int j = 0; j < kAcc / 4; ++j) {
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const int b = it.b0 + 8 * j + 2 * q + x;
+          if (b >= st.B) continue;
+          uint32_t v = 0;
+#pragma unroll
+          for (int li = 0; li < NL; ++li)
+            v += static_cast<uint32_t>(sums[li][4 * j + 2 * hi + x])
+                 << (kLimbBits * (li + kLimbs - NL));
+          red_add(out + b * row_stride, v);
+        }
+      }
+    }
+  }
+}
+
 // acc [B, kp1, N] += the external product of dec (the tensor map tma_dec)
 // with the key of one step, bk_i, whose limb li is worth 2^(8(li + 4 -
 // NL)). At D = 0, dec is [B, I*N] and bk_i [I, kp1, NL, 2N]; at Karatsuba
 // depth D, LN = N >> D, dec is [B, 3^D * I*LN] (leaf-major) and bk_i
-// [I, kp1, NL, 3^D * 2LN]. Block (x, y, z): leaf outputs go = o*LN + c in
-// [128x, 128x + 128), batch rows [64y, 64y + 64), and range z of the
-// gridDim.z ranges of the step's T = 3^D * S stages (S = ceil(I*LN / 128)
-// a leaf), [zT/Z, (z+1)T/Z). Threads 0-255 are the consumer warpgroups,
-// 256-383 the producer warpgroup, of which one warp issues the copies.
+// [I, kp1, NL, 3^D * 2LN]. Block (x, y, z) is the item of tile (x, y) over
+// range z of the gridDim.z ranges of the step's T stages, [zT/Z,
+// (z+1)T/Z). Threads 0-255 are the consumer warpgroups, 256-383 the
+// producer warpgroup, of which one warp issues the copies.
 template <int NL, int SEG, int D>
 __global__ void __launch_bounds__(kExtThreads, 1)
 extprod_kernel(const __grid_constant__ CUtensorMap tma_dec,
@@ -557,280 +972,202 @@ extprod_kernel(const __grid_constant__ CUtensorMap tma_dec,
   const uint32_t full0 = base + E::kRing;          // full barrier i: +8i
   const uint32_t empty0 = full0 + 8 * kStages;
   const int tid = threadIdx.x;
-  const int wg = tid / 128;
-  const int LN = N >> D;                           // coefficients a leaf
-  const int KB = I * LN;                           // contraction bytes a leaf
-  const int S = (KB + kStageK - 1) / kStageK;      // stages a leaf
-  const int T = S * E::kLeaves;
-  const int s0 = static_cast<int>(static_cast<long long>(blockIdx.z) * T /
-                                  gridDim.z);    // the block's stages s0..s1-1
-  const int s1 = static_cast<int>(
-      static_cast<long long>(blockIdx.z + 1) * T / gridDim.z);
-  const int go0 = blockIdx.x * kOutTile;
-  const int b0 = blockIdx.y * kRowTile;
-  // the block's 32-output groups that exist (group 2*warpgroup + hi, see
-  // the consumer) and its runs of SEG outputs that exist
-  const int groups = min(kOutTile / kGroup, (kp1 * LN - go0) / kGroup);
-  const int runs = min(E::kRuns, (kp1 * LN - go0) / SEG);
+  const ExtStep st = ext_step<D>(B, N, kp1, I);
+  const ExtItem it = ext_item<SEG>(
+      st, blockIdx.x, blockIdx.y,
+      static_cast<int>(static_cast<long long>(blockIdx.z) * st.T / gridDim.z),
+      static_cast<int>(static_cast<long long>(blockIdx.z + 1) * st.T /
+                       gridDim.z));
+  ring_init(full0, empty0);
 
-  if (tid == 0) {
-    for (int i = 0; i < kStages; ++i) {
-      mbar_init(full0 + 8 * i, 1);
-      mbar_init(empty0 + 8 * i, 4 * kConsumers);   // one per consumer warp
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  if (wg == kConsumers) {
-    // ---- producer: the dec tile by TMA, the key windows by bulk copies ----
+  if (tid / 128 == kConsumers) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (tid - 128 * kConsumers < 32) {
-      const int lane = tid & 31;
-      int slot = 0;
-      uint32_t parity = 1;                         // the ring starts empty
-      for (int s = s0; s < s1; ++s) {
-        const uint32_t sa = base + slot * E::kStageBytes;
-        const uint32_t full = full0 + 8 * slot;
-        const int v = D > 0 ? s / S : 0;           // the stage's leaf
-        const int sv = s - v * S;                  // its stage in the leaf
-        // key rows of the stage inside the contraction
-        const int segs = min(E::kSegs, (KB - sv * kStageK + SEG - 1) / SEG);
-        mbar_wait(empty0 + 8 * slot, parity);
-        if (lane == 0) {
-          mbar_arrive_tx(full, kBTile + segs * runs * NL * E::kWin);
-          tma_load(sa, &tma_dec, full, s * kStageK, b0);
-        }
-        __syncwarp();
-        for (int wi = lane; wi < E::kWins; wi += 32) {
-          const int li = wi % NL;
-          const int run = wi / NL % E::kRuns;
-          const int seg = wi / NL / E::kRuns;
-          if (seg >= segs || run >= runs) continue;
-          const int p = sv * kStageK + seg * SEG;
-          const int r = p / LN;
-          const int t0 = p - r * LN;
-          const int go = go0 + SEG * run;
-          const int o = go / LN;
-          const int c0 = go - o * LN;
-          const int8_t* src =
-              bk_i +
-              ((static_cast<size_t>(r) * kp1 + o) * NL + li) * E::kLeaves *
-                  2 * LN +
-              2 * LN * v + (LN + c0 - t0 - SEG);
-          bulk_load(sa + kBTile + wi * E::kWinStride, src, E::kWin, full);
-        }
-        if (++slot == kStages) {
-          slot = 0;
-          parity ^= 1;
-        }
-      }
+      Ring r{0, 1};                                // the ring starts empty
+      ext_produce<NL, SEG, D>(&tma_dec, bk_i, base, full0, empty0, tid & 31,
+                              st, it, r);
     }
   } else {
-    // ---- consumer warpgroup wg: outputs go0 + 64 wg .. + 63, NL limbs ----
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-    const int lane = tid & 31;
-    const int warp = (tid >> 5) & 3;
-    const int g = lane >> 2, q = lane & 3;
-    const bool lo_ok = 2 * wg < groups;           // outputs past (k+1)N
-    const bool hi_ok = 2 * wg + 1 < groups;       // have zero fragments
-    // Register 2*h2 + hi of lane (g, q) at k-step kq of a key row holds
-    // output u = 32*hi + 8*warp + g of the warpgroup's 64 and contraction
-    // bytes k = 32kq + 16h2 + 4q + e (e = 0..3) of the row's SEG: bytes
-    // x = u' - k + SEG of the window of u's run, u' = u's place in the run,
-    // i.e. bytes xa+3 .. xa with xa = 4m + sh, sh = (g + 1) mod 4 and m =
-    // at[hi] - 8kq - 4h2 (at[hi]: the word of h2 = kq = 0 in the window of
-    // limb 0 and the stage's first key row); __byte_perm of words m and
-    // m+1 with selector sel puts them in order.
-    const int sh = (g + 1) & 3;
-    const uint32_t sel = (sh + 3) | ((sh + 2) << 4) | ((sh + 1) << 8) |
-                         (sh << 12);
-    const int m0 = 2 * warp + SEG / 4 - q + ((g + 1) >> 2) - 1;
-    constexpr int kW = E::kWinStride / 4;          // words a window
-    int at[2];
-#pragma unroll
-    for (int hi = 0; hi < 2; ++hi) {
-      const int u0 = kWgOut * wg + kGroup * hi;    // in the block's 128
-      at[hi] = u0 / SEG * NL * kW + u0 % SEG / 4 + m0;
-    }
-    int sums[NL][kAcc];
-#pragma unroll
-    for (int li = 0; li < NL; ++li) {
-#pragma unroll
-      for (int e = 0; e < kAcc; ++e) sums[li][e] = 0;
-      reg_fence(sums[li]);
-    }
-    uint32_t frag[kStageK / 32][NL][4];
-    int slot = 0;
-    uint32_t parity = 0;
-    // D > 0: the uint32 sums of the thread's outputs in each quarter, four
-    // a 16-byte word, at [qd][e / 4][tid] (consecutive threads,
-    // consecutive words), and the quarters the range has written (the
-    // same for every thread)
-    constexpr int kQStride = 128 * kConsumers;
-    uint4* quarters = reinterpret_cast<uint4*>(
-        smem_raw + (base - raw) + E::kRing + 16 * kStages);
-    uint32_t touched = 0;
-    for (int s = s0; s < s1; ++s) {
-      mbar_wait(full0 + 8 * slot, parity);
-      const uint32_t* win = reinterpret_cast<const uint32_t*>(
-          ring + slot * E::kStageBytes + kBTile);
-      const uint64_t db = smem_desc(base + slot * E::kStageBytes);
-#pragma unroll
-      for (int kk = 0; kk < kStageK / 32; ++kk) {
-        const int seg = kk / E::kSegSteps;
-        const int kq = kk % E::kSegSteps;
-#pragma unroll
-        for (int li = 0; li < NL; ++li) {
-          uint32_t (&f)[4] = frag[kk][li];
-          const uint32_t* w =
-              win + (seg * E::kRuns * NL + li) * kW - 8 * kq;
-          const uint32_t* wl = w + at[0];
-          f[0] = lo_ok ? __byte_perm(wl[0], wl[1], sel) : 0u;
-          f[2] = lo_ok ? __byte_perm(wl[-4], wl[-3], sel) : 0u;
-          if (kq > 0) {       // outputs c + 32 at kk are outputs c at kk-1
-            f[1] = frag[kk > 0 ? kk - 1 : 0][li][0];
-            f[3] = frag[kk > 0 ? kk - 1 : 0][li][2];
-          } else {
-            const uint32_t* wh = w + at[1];
-            f[1] = hi_ok ? __byte_perm(wh[0], wh[1], sel) : 0u;
-            f[3] = hi_ok ? __byte_perm(wh[-4], wh[-3], sel) : 0u;
-          }
-        }
-      }
-      // one group a stage: the fence, commit and wait are paid once for
-      // NL * 4 wgmma
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kStageK / 32; ++kk) {
-#pragma unroll
-        for (int li = 0; li < NL; ++li)
-          wgmma_rs(sums[li], frag[kk][li], db + 2 * kk);
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-      frag_fence(frag);
-      if (lane == 0) mbar_arrive(empty0 + 8 * slot);   // the slot is free
-      if (++slot == kStages) {
-        slot = 0;
-        parity ^= 1;
-      }
-      if constexpr (D > 0) {
-        if (s + 1 == s1 || (s + 1) % S == 0) {     // the leaf's last stage
-#pragma unroll
-          for (int li = 0; li < NL; ++li) reg_fence(sums[li]);
-          const uint32_t feeds = leaf_quarters(s / S, D);
-          uint4 u[kAcc / 4];
-#pragma unroll
-          for (int j = 0; j < kAcc / 4; ++j) {
-            uint32_t w[4];
-#pragma unroll
-            for (int x = 0; x < 4; ++x) {
-              w[x] = 0;
-#pragma unroll
-              for (int li = 0; li < NL; ++li) {
-                w[x] += static_cast<uint32_t>(sums[li][4 * j + x])
-                        << (kLimbBits * (li + kLimbs - NL));
-                sums[li][4 * j + x] = 0;
-              }
-            }
-            u[j] = make_uint4(w[0], w[1], w[2], w[3]);
-          }
-#pragma unroll
-          for (int qd = 0; qd < E::kQuarters; ++qd) {
-            if (!((feeds >> qd) & 1u)) continue;
-            uint4* qs = quarters + qd * (kAcc / 4) * kQStride + tid;
-            if ((touched >> qd) & 1u) {
-#pragma unroll
-              for (int j = 0; j < kAcc / 4; ++j) {
-                const uint4 o = qs[j * kQStride];
-                qs[j * kQStride] = make_uint4(o.x + u[j].x, o.y + u[j].y,
-                                              o.z + u[j].z, o.w + u[j].w);
-              }
-            } else {
-#pragma unroll
-              for (int j = 0; j < kAcc / 4; ++j) qs[j * kQStride] = u[j];
-            }
-          }
-          touched |= feeds;
-#pragma unroll
-          for (int li = 0; li < NL; ++li) reg_fence(sums[li]);
-        }
-      }
-    }
-#pragma unroll
-    for (int li = 0; li < NL; ++li) reg_fence(sums[li]);
+    Ring r{0, 0};
+    ext_consume<NL, SEG, D>(
+        acc, ring, base, full0, empty0,
+        reinterpret_cast<uint4*>(smem_raw + (base - raw) + E::kRing +
+                                 16 * kStages),
+        tid, st, it, r);
+  }
+}
 
-    if constexpr (D > 0) {
-      // every quarter the range touched, added to acc once an output:
-      // element 2hi + x of quarters[qd][j] of this thread is output
-      // (o, qd*LN + c) with o*LN + c = go below, batch row b0 + 8j + 2q + x
-#pragma unroll
-      for (int qd = 0; qd < E::kQuarters; ++qd) {
-        if (!((touched >> qd) & 1u)) continue;
-        const uint4* qs = quarters + qd * (kAcc / 4) * kQStride + tid;
-        uint32_t* out[2];
-#pragma unroll
-        for (int hi = 0; hi < 2; ++hi) {
-          const int go = go0 + kWgOut * wg + kGroup * hi + 8 * warp + g;
-          const int o = go / LN;
-          out[hi] = acc + static_cast<size_t>(o) * N + qd * LN + (go - o * LN);
-        }
-#pragma unroll
-        for (int j = 0; j < kAcc / 4; ++j) {
-          const uint4 w = qs[j * kQStride];
-          const uint32_t v[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-          for (int hx = 0; hx < 4; ++hx) {
-            const int b = b0 + 8 * j + 2 * q + (hx & 1);
-            if (b >= B) continue;
-            red_add(out[hx >> 1] + static_cast<size_t>(b) * kp1 * N, v[hx]);
-          }
-        }
+// Every block of a cooperative grid waits here until all have arrived
+// `target` times in all (gridDim.x a barrier): the block's threads meet,
+// thread 0 adds its arrival with release and polls the count with acquire,
+// both at gpu scope, and the block meets again. What any thread of any
+// block wrote before the barrier is visible to every thread after it. A
+// grid whose blocks cannot all meet (a fault: the launch is cooperative)
+// traps after 2^26 polls, tens of seconds, rather than hang the card.
+__device__ __forceinline__ void grid_sync(unsigned int* count,
+                                          unsigned int target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n"
+                 :: "l"(count) : "memory");
+    unsigned int seen, polls = 0;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+                   : "=r"(seen) : "l"(count) : "memory");
+      if (++polls == (1u << 26)) __trap();
+    } while (seen < target);
+  }
+  __syncthreads();
+}
+
+// Order this thread's generic-proxy accesses to global memory before its
+// later async-proxy ones (and those that other threads order after it).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// The persistent kernel's arguments beside its pointers: rotdec's, its
+// blocks a step, the product's shape, the steps, and the key's bytes a
+// step.
+struct PersistArgs {
+  RotArgs rot;
+  int rot_blocks;
+  int B, N, kp1, I, n0, key_step;
+};
+
+// The whole rotation in one cooperative launch: n0 steps, each rotdec's
+// blocks strided by gridDim.x, then the block's share of the product
+// (for_share), separated by grid_sync (the file's note).
+// arrivals: a zeroed counter, 2 n0 gridDim.x arrivals in all. acc, dec,
+// tma_dec and the key's layout are cufhe_blind_rotate's; abar is [n0, B].
+template <int NL, int SEG, int D, int L, int ND>
+__global__ void __launch_bounds__(kExtThreads, 1)
+persistent_extprod_kernel(const __grid_constant__ CUtensorMap tma_dec,
+                          uint32_t* __restrict__ acc,
+                          const int32_t* __restrict__ abar,
+                          const int8_t* __restrict__ key,
+                          int8_t* __restrict__ dec,
+                          unsigned int* __restrict__ arrivals,
+                          const PersistArgs a) {
+  using E = Ext<NL, SEG, D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint8_t* ring = smem_raw + (base - raw);
+  const uint32_t full0 = base + E::kRing;
+  const uint32_t empty0 = full0 + 8 * kStages;
+  // the quarters in phase 2, rotdec's rows in phase 1
+  uint8_t* spare = smem_raw + (base - raw) + E::kRing + 16 * kStages;
+  const int tid = threadIdx.x;
+  const ExtStep st = ext_step<D>(a.B, a.N, a.kp1, a.I);
+  const int nx = (st.kp1 * st.LN + kOutTile - 1) / kOutTile;
+  const int ny = (st.B + kRowTile - 1) / kRowTile;
+  ring_init(full0, empty0);
+
+  if (tid / 128 == kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    const bool issues = tid - 128 * kConsumers < 32;
+    Ring r{0, 1};                                  // the ring starts empty
+    for (int i = 0; i < a.n0; ++i) {
+      const int8_t* bk_i = key + static_cast<size_t>(i) * a.key_step;
+      if (tid == 128 * kConsumers) {
+        // the block's share of the step's key, into L2 while rotdec runs
+        const int share = (a.key_step / gridDim.x + 16) / 16 * 16;
+        const int from = share * blockIdx.x;
+        if (from < a.key_step)
+          asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n"
+                       :: "l"(bk_i + from),
+                          "r"(static_cast<uint32_t>(
+                              min(share, a.key_step - from)))
+                       : "memory");
       }
-    } else {
-      // sums[li][4j + 2hi + x]: output 32*hi + 8*warp + g of the
-      // warpgroup's 64, batch row b0 + 8j + 2q + x
-#pragma unroll
-      for (int hi = 0; hi < 2; ++hi) {
-        if (!(hi ? hi_ok : lo_ok)) continue;
-        const int go = go0 + kWgOut * wg + kGroup * hi + 8 * warp + g;
-        const int o = go / N;
-        uint32_t* out = acc + static_cast<size_t>(o) * N + (go - o * N);
-#pragma unroll
-        for (int j = 0; j < kAcc / 4; ++j) {
-#pragma unroll
-          for (int x = 0; x < 2; ++x) {
-            const int b = b0 + 8 * j + 2 * q + x;
-            if (b >= B) continue;
-            uint32_t v = 0;
-#pragma unroll
-            for (int li = 0; li < NL; ++li)
-              v += static_cast<uint32_t>(sums[li][4 * j + 2 * hi + x])
-                   << (kLimbBits * (li + kLimbs - NL));
-            red_add(out + static_cast<size_t>(b) * kp1 * N, v);
-          }
-        }
+      grid_sync(arrivals, gridDim.x * (2 * i + 1));
+      if (issues) {
+        fence_proxy_async();                       // dec, now by TMA
+        for_share<SEG>(st, nx, ny, [&](const ExtItem& it) {
+          ext_produce<NL, SEG, D>(&tma_dec, bk_i, base, full0, empty0,
+                                  tid & 31, st, it, r);
+        });
       }
+      grid_sync(arrivals, gridDim.x * (2 * i + 2));
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    Ring r{0, 0};
+    for (int i = 0; i < a.n0; ++i) {
+      for (int blk = blockIdx.x; blk < a.rot_blocks; blk += gridDim.x) {
+        rotdec_rows<L, ND, D>(acc, abar + static_cast<size_t>(i) * a.B, dec,
+                              a.rot, blk, tid,
+                              reinterpret_cast<uint32_t*>(spare));
+        rot_sync();                  // the rows are read: the next may land
+      }
+      fence_proxy_async();           // dec's stores before the TMA reads
+      grid_sync(arrivals, gridDim.x * (2 * i + 1));
+      for_share<SEG>(st, nx, ny, [&](const ExtItem& it) {
+        ext_consume<NL, SEG, D>(acc, ring, base, full0, empty0,
+                                reinterpret_cast<uint4*>(spare), tid, st, it,
+                                r);
+      });
+      grid_sync(arrivals, gridDim.x * (2 * i + 2));
     }
   }
 }
 
+using PersistFn = cudaError_t (*)(const CUtensorMap&, uint32_t*,
+                                  const int32_t*, const int8_t*, int8_t*,
+                                  unsigned int*, const PersistArgs&, int,
+                                  int, cudaStream_t);
+
+// One cooperative launch of the persistent kernel: `grid` blocks, `smem`
+// bytes of shared memory each.
+template <int NL, int SEG, int D, int L, int ND>
+cudaError_t launch_persistent(const CUtensorMap& map, uint32_t* acc,
+                              const int32_t* abar, const int8_t* key,
+                              int8_t* dec, unsigned int* arrivals,
+                              const PersistArgs& a, int grid, int smem,
+                              cudaStream_t s) {
+  const auto kernel = persistent_extprod_kernel<NL, SEG, D, L, ND>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  CUtensorMap m = map;
+  PersistArgs pa = a;
+  void* args[] = {&m, &acc, &abar, &key, &dec, &arrivals, &pa};
+  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                     dim3(grid), dim3(kExtThreads), args,
+                                     smem, s);
+}
+
+// The persistent instance for (l, nd): rotdec's digit loops unrolled at
+// the two published sets that take this path in their cells (tfhepp_128bit:
+// l 3, nd 1, depth 2; concrete: l 2, nd 1, depth 0), generic elsewhere.
+template <int NL, int SEG, int D>
+PersistFn persistent_instance(int l, int nd) {
+  if constexpr (NL == kLimbs && SEG == kStageK && D == 2) {
+    if (l == 3 && nd == 1) return launch_persistent<NL, SEG, D, 3, 1>;
+  }
+  if constexpr (NL == kLimbs && SEG == kStageK && D == 0) {
+    if (l == 2 && nd == 1) return launch_persistent<NL, SEG, D, 2, 1>;
+  }
+  return launch_persistent<NL, SEG, D, 0, 0>;
+}
+
 // The n0 steps of one rotation through extprod_kernel<NL, SEG, D>, its
-// contraction cut into `split` ranges.
+// contraction cut into `split` ranges: 2 n0 launches of rotdec_kernel and
+// extprod_kernel where grid is 0, else one cooperative launch of grid
+// blocks of persistent_extprod_kernel, which counts its barriers in
+// arrivals (zeroed).
 template <int NL, int SEG, int D>
 cudaError_t rotate(uint32_t* acc, const int32_t* abar, const int8_t* key,
                    int8_t* dec, int B, int n0, int N, int nbit, int kp1,
                    int l, int Bgbit, int nd, int dbits, uint32_t off,
-                   int split, cudaStream_t s) {
+                   int split, int grid, unsigned int* arrivals,
+                   cudaStream_t s) {
   using E = Ext<NL, SEG, D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      extprod_kernel<NL, SEG, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, E::kSmem);
-  if (err != cudaSuccess) return err;
-  RotdecPlan plan;
-  err = rotdec_plan(nbit, l, nd, D, &plan);
-  if (err != cudaSuccess) return err;
+  const RotdecPlan plan = rotdec_plan(nbit, l, nd, D);
+  const RotArgs ra = rot_args(plan, B, nbit, kp1, l, Bgbit, nd, dbits, off);
+  const int rot_blocks = rotdec_blocks(plan, B, kp1);
   const int I = kp1 * l * nd;
   const int LN = N >> D;
   const EncodeTiled fn = encode_tiled();
@@ -840,13 +1177,29 @@ cudaError_t rotate(uint32_t* acc, const int32_t* abar, const int8_t* key,
     return cudaErrorInvalidValue;
   const size_t key_step =
       static_cast<size_t>(I) * kp1 * NL * E::kLeaves * 2 * LN;
-  const dim3 grid((kp1 * LN + kOutTile - 1) / kOutTile,
-                  (B + kRowTile - 1) / kRowTile, split);
+  if (grid > 0) {
+    if (key_step > INT_MAX) return cudaErrorInvalidValue;
+    // the ring, its barriers, then the quarters or rotdec's rows
+    const int smem = E::kRing + 16 * kStages +
+                     std::max(E::kQBytes, plan.smem) + 1024;
+    if (smem > kMaxSmem) return cudaErrorInvalidValue;
+    const PersistArgs pa{ra, rot_blocks, B, N, kp1, I, n0,
+                         static_cast<int>(key_step)};
+    return persistent_instance<NL, SEG, D>(l, nd)(
+        map, acc, abar, key, dec, arrivals, pa, grid, smem, s);
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      extprod_kernel<NL, SEG, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, E::kSmem);
+  if (err == cudaSuccess) err = rotdec_smem(plan);
+  if (err != cudaSuccess) return err;
+  const dim3 ext_grid((kp1 * LN + kOutTile - 1) / kOutTile,
+                      (B + kRowTile - 1) / kRowTile, split);
   for (int i = 0; i < n0; ++i) {
-    err = launch_rotdec(plan, acc, abar + static_cast<size_t>(i) * B, dec, B,
-                        nbit, kp1, l, Bgbit, nd, dbits, off, s);
+    err = launch_rotdec(plan, acc, abar + static_cast<size_t>(i) * B, dec,
+                        ra, rot_blocks, s);
     if (err != cudaSuccess) return err;
-    extprod_kernel<NL, SEG, D><<<grid, kExtThreads, E::kSmem, s>>>(
+    extprod_kernel<NL, SEG, D><<<ext_grid, kExtThreads, E::kSmem, s>>>(
         map, acc, key + i * key_step, B, N, kp1, I);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -856,7 +1209,8 @@ cudaError_t rotate(uint32_t* acc, const int32_t* abar, const int8_t* key,
 
 using RotateFn = cudaError_t (*)(uint32_t*, const int32_t*, const int8_t*,
                                  int8_t*, int, int, int, int, int, int, int,
-                                 int, int, uint32_t, int, cudaStream_t);
+                                 int, int, uint32_t, int, int, unsigned int*,
+                                 cudaStream_t);
 
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
@@ -883,19 +1237,24 @@ bool depth_ok(int depth, int nbit, int Bgbit, int dbits, int nlimbs) {
 // nlimbs is 4 (the exact key) or 3 (pallas3, N >= 128, D = 0); the
 // product's instance follows from nlimbs, N and D. split, 1 <= split <=
 // 3^D * ceil(I*LN / 128), is the number of contraction ranges,
-// ops/blind_rotate.py:extprod_plan's choice. Enqueues 2*n0 kernels on
-// `stream` and returns the first launch error as a cudaError_t value (0 on
-// success); it does not wait.
+// ops/blind_rotate.py:extprod_plan's choice. grid 0 enqueues the 2*n0
+// kernels of the loop on `stream`; grid > 0 one cooperative launch of grid
+// blocks (at most one an SM) of the persistent kernel, whose barriers
+// count in `arrivals`, a zeroed 4-byte counter
+// (ops/blind_rotate.py:rotation_plan chooses). Returns the first launch
+// error as a cudaError_t value (0 on success); it does not wait.
 // Another nlimbs, a three-limb key at N < 128, a depth depth_ok refuses,
 // sets whose limb sums could leave int32 (I*N*2^(dbits-1)*128 >= 2^31),
-// N < 32, N > 2^kRotMaxNbit, another split and the other arguments
-// args_ok refuses are refused with cudaErrorInvalidValue.
+// N < 32, N > 2^kRotMaxNbit, another split, a negative grid, a grid
+// without its counter and the other arguments args_ok refuses are
+// refused with cudaErrorInvalidValue.
 extern "C" int cufhe_blind_rotate(void* acc, const void* abar,
                                   const void* bk_ext, void* dec, int B,
                                   int n0, int N, int nbit, int k, int l,
                                   int Bgbit, int nd, int dbits, int nlimbs,
                                   int depth, unsigned int off_const,
-                                  int split, void* stream) {
+                                  int split, int grid, void* arrivals,
+                                  void* stream) {
   if (n0 < 0 || !args_ok(acc, dec, B, N, nbit, k, l, Bgbit, nd, dbits) ||
       !depth_ok(depth, nbit, Bgbit, dbits, nlimbs))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -907,7 +1266,9 @@ extern "C" int cufhe_blind_rotate(void* acc, const void* abar,
   const long long stages =
       pow3(depth) * ((I * (N >> depth) + kStageK - 1) / kStageK);
   if (split < 1 || split > stages || split > 65535 || !aligned16(dec) ||
-      !aligned16(bk_ext))
+      !aligned16(bk_ext) || grid < 0 ||
+      (grid > 0 && (arrivals == nullptr ||
+                    reinterpret_cast<uintptr_t>(arrivals) % 4 != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   auto* acc_u = static_cast<uint32_t*>(acc);
   const auto* abar_i = static_cast<const int32_t*>(abar);
@@ -925,7 +1286,9 @@ extern "C" int cufhe_blind_rotate(void* acc, const void* abar,
     run = rotate<3, 128, 0>;
   if (run == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(run(acc_u, abar_i, key, dec_i8, B, n0, N, nbit,
-                              kp1, l, Bgbit, nd, dbits, off_const, split, s));
+                              kp1, l, Bgbit, nd, dbits, off_const, split,
+                              grid, static_cast<unsigned int*>(arrivals),
+                              s));
 }
 
 // One step's rotate-and-decompose alone: dec [B, I, N] int8 at depth 0,
@@ -941,14 +1304,14 @@ extern "C" int cufhe_rotdec(const void* acc, const void* abar_i, void* dec,
   if (!args_ok(acc, dec, B, N, nbit, k, l, Bgbit, nd, dbits) ||
       !depth_ok(depth, nbit, Bgbit, dbits, kLimbs))
     return static_cast<int>(cudaErrorInvalidValue);
-  RotdecPlan plan;
-  cudaError_t err = rotdec_plan(nbit, l, nd, depth, &plan);
+  const RotdecPlan plan = rotdec_plan(nbit, l, nd, depth);
+  cudaError_t err = rotdec_smem(plan);
   if (err == cudaSuccess)
-    err = launch_rotdec(plan, static_cast<const uint32_t*>(acc),
-                        static_cast<const int32_t*>(abar_i),
-                        static_cast<int8_t*>(dec), B, nbit, k + 1, l, Bgbit,
-                        nd, dbits, off_const,
-                        static_cast<cudaStream_t>(stream));
+    err = launch_rotdec(
+        plan, static_cast<const uint32_t*>(acc),
+        static_cast<const int32_t*>(abar_i), static_cast<int8_t*>(dec),
+        rot_args(plan, B, nbit, k + 1, l, Bgbit, nd, dbits, off_const),
+        rotdec_blocks(plan, B, k + 1), static_cast<cudaStream_t>(stream));
   return static_cast<int>(err);
 }
 

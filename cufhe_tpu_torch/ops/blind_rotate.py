@@ -12,7 +12,11 @@ Two versions of the same function live here:
 * blind_rotate_cuda, the hand-written CUDA kernels (csrc/blind_rotate.cu),
   reading the key in the layout prepare_bk_ext builds. The product kernel
   runs on wgmma; extprod_plan chooses how many ranges its contraction is
-  cut into, and the C entry takes that split.
+  cut into, and the C entry takes that split. rotation_plan chooses the
+  launch: where the split is 1, two kernels a step (rotdec_kernel, then
+  extprod_kernel); where the batch is too small to fill the card and the
+  contraction is split, one cooperative launch of
+  persistent_extprod_kernel that walks all n0 steps.
 
 Both take the key at four limbs (the exact path) or three (the reduced-
 precision `pallas3` path of the JAX package: the lowest of the four
@@ -128,6 +132,20 @@ def leaf_operands(dec: torch.Tensor, depth: int) -> torch.Tensor:
     return out.to(torch.int8)
 
 
+def extprod_items(B: int, N: int, kp1: int, depth: int, split: int) -> int:
+    """The work items of one step of the product: output tiles x batch
+    tiles x ranges, extprod_kernel's grid (csrc/blind_rotate.cu)."""
+    LN = N >> depth
+    return (cdiv(kp1 * LN, EXTPROD_OUT_TILE) * cdiv(B, EXTPROD_ROW_TILE)
+            * split)
+
+
+def extprod_stages(N: int, I: int, depth: int) -> int:
+    """The contraction stages of one step of the product: 3^depth leaves
+    of ceil(I * (N >> depth) / 128)."""
+    return 3 ** depth * cdiv(I * (N >> depth), EXTPROD_STAGE_BYTES)
+
+
 def extprod_plan(B: int, N: int, kp1: int, I: int,
                  sms: int = H100_SMS, depth: int = 0) -> int:
     """The product kernel's split for B accumulators [B, kp1, N], I digit
@@ -142,9 +160,8 @@ def extprod_plan(B: int, N: int, kp1: int, I: int,
     EXTPROD_LEAF_BLOCK_OVERHEAD), so a split's ranges z*T/Z never straddle
     two leaves: a range folds once and adds only the quarters its leaf
     feeds to acc."""
-    LN = N >> depth
-    blocks = cdiv(kp1 * LN, EXTPROD_OUT_TILE) * cdiv(B, EXTPROD_ROW_TILE)
-    stages = 3 ** depth * cdiv(I * LN, EXTPROD_STAGE_BYTES)
+    blocks = extprod_items(B, N, kp1, depth, 1)
+    stages = extprod_stages(N, I, depth)
     if blocks >= sms:
         return 1
     if depth:
@@ -155,6 +172,26 @@ def extprod_plan(B: int, N: int, kp1: int, I: int,
         overhead = EXTPROD_BLOCK_OVERHEAD
     return min(splits, key=lambda z: (
         cdiv(blocks * z, sms) * (cdiv(stages, z) + overhead), z))
+
+
+def rotation_plan(B: int, N: int, kp1: int, I: int, sms: int = H100_SMS,
+                  depth: int = 0) -> tuple:
+    """(split, grid) of one rotation of B accumulators [B, kp1, N] with I
+    digit rows at Karatsuba depth `depth` on a card of `sms` SMs: split is
+    extprod_plan's, the loop's ranges; grid is the persistent kernel's
+    cooperative grid, or 0 for the loop of 2 n0 launches. The persistent
+    kernel runs exactly where the split is > 1, where the step's output
+    tiles x batch tiles leave SMs idle, and saves the n0 steps' launches,
+    block prologues and rotdec launches. Its grid is one block an SM, or
+    one a stage of the step's work where that is fewer: the blocks share
+    the step's tiles x stages equally (csrc/blind_rotate.cu: for_share).
+    Where the tiles fill the card (both NAND cells' 4096 rows) the loop
+    runs. The choice follows from the shape alone."""
+    split = extprod_plan(B, N, kp1, I, sms, depth)
+    if split == 1:
+        return split, 0
+    stages = extprod_stages(N, I, depth)
+    return split, min(extprod_items(B, N, kp1, depth, stages), sms)
 
 
 def check_key_limbs(nlimbs: int, params: GateParams) -> None:
@@ -367,7 +404,10 @@ def blind_rotate_cuda(acc: torch.Tensor, abar: torch.Tensor,
     limb count, N and the depth, and refuses a depth whose leaf operands
     could leave int8. Enqueued on the current stream; raises if the
     kernels cannot be built or launched. The product's contraction split
-    is extprod_plan's for the card's SM count.
+    and the launch (the loop, or one persistent kernel) are
+    rotation_plan's for the card's SM count; each persistent rotation
+    counts once on spans.counts()["blind_rotate.persistent"], each loop n0
+    times on "rotdec".
     """
     return _blind_rotate_cuda(acc, abar, bk_ext, params,
                               kar_depth(params, _key_limbs(bk_ext)))
@@ -375,9 +415,11 @@ def blind_rotate_cuda(acc: torch.Tensor, abar: torch.Tensor,
 
 def _blind_rotate_cuda(acc: torch.Tensor, abar: torch.Tensor,
                        bk_ext: torch.Tensor, params: GateParams,
-                       depth: int) -> torch.Tensor:
+                       depth: int, grid: int | None = None) -> torch.Tensor:
     """blind_rotate_cuda at Karatsuba depth `depth`, for the tests and
-    benchmarks.rotation, which hold and time other depths."""
+    benchmarks.rotation, which hold and time other depths; and with the
+    persistent kernel's `grid` in place of rotation_plan's (0: the loop),
+    to hold and time both launches at one shape."""
     n0 = params.lvl0.dim
     N, nbit, k, l, Bgbit, nd, dbits, off = _decomp_args(params)
     I = (k + 1) * l * nd
@@ -387,17 +429,25 @@ def _blind_rotate_cuda(acc: torch.Tensor, abar: torch.Tensor,
                 "abar": (abar, torch.int32, (n0, B)),
                 "bk_ext": (bk_ext, torch.int8,
                            _key_shape(params, nlimbs, depth))})
-    split = extprod_plan(B, N, k + 1, I, sms(acc.device), depth)
+    split, planned = rotation_plan(B, N, k + 1, I, sms(acc.device), depth)
+    grid = planned if grid is None else grid
     out = acc.clone()
     dec = torch.empty((B, 3 ** depth * I * (N >> depth)), dtype=torch.int8,
                       device=acc.device)
+    # the persistent kernel's barrier counter, zeroed for each rotation
+    arrivals = (torch.zeros(1, dtype=torch.int32, device=acc.device)
+                if grid else None)
     call("cufhe_blind_rotate", acc.device, out.data_ptr(), abar.data_ptr(),
          bk_ext.data_ptr(), dec.data_ptr(), B, n0, N, nbit, k, l, Bgbit, nd,
-         dbits, nlimbs, depth, off, split)
+         dbits, nlimbs, depth, off, split, grid,
+         arrivals.data_ptr() if grid else None)
     count("blind_rotate")
     count(f"blind_rotate.limbs{nlimbs}")
     count(f"blind_rotate.kar{depth}")
-    count("rotdec", n0)
+    if grid:
+        count("blind_rotate.persistent")
+    else:
+        count("rotdec", n0)
     return out
 
 

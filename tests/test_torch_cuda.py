@@ -1,6 +1,7 @@
 """cufhe_tpu_torch on a CUDA device: the blind-rotation kernels (at the tiny
 presets and at every full preset; the rotate-and-decompose kernel also
-alone, and its refusal of rows wider than shared memory holds), the key
+alone, and its refusal of rows wider than shared memory holds; the
+persistent rotation against the loop and the plain version), the key
 switch kernel at every preset, and both tensor-core probe kernels (wgmma and mma.sync) against their plain
 PyTorch versions; the gates and mux at both levels against the port's
 golden model; the executor against its CPU run; gates chained across CUDA
@@ -149,14 +150,22 @@ def test_cuda_rotdec_matches_ref_full_presets(params, cuda):
 
 
 def test_cuda_blind_rotate_counts_rotdec_launches(cuda):
-    """cufhe_blind_rotate launches the rotate-and-decompose kernel once per
-    step: n0 on rotdec_cuda's count per rotation."""
+    """On the loop (a batch that fills the card: 64 rows an SM at TINY's
+    one output tile) cufhe_blind_rotate launches the rotate-and-decompose
+    kernel once per step: n0 on rotdec_cuda's count per rotation, 0 on
+    blind_rotate.persistent. At 3 rows the one persistent launch does the
+    same steps: 1 on blind_rotate.persistent, 0 on rotdec."""
     params = P.TINY
     keys = _device_keys(params, 92)
-    acc, abar = _random_inputs(params, 3, 93, cuda)
-    before = counts()["rotdec"]
-    BR.blind_rotate_cuda(acc, abar, keys.bk_ext, params)
-    assert counts()["rotdec"] == before + params.n0
+    rows = BR.EXTPROD_ROW_TILE * _build.sms(cuda)
+    for B, rotdec, persistent in ((rows, params.n0, 0), (3, 0, 1)):
+        acc, abar = _random_inputs(params, B, 93, cuda)
+        before = counts()
+        BR.blind_rotate_cuda(acc, abar, keys.bk_ext, params)
+        after = counts()
+        assert after["rotdec"] - before["rotdec"] == rotdec
+        assert after["blind_rotate.persistent"] - \
+            before["blind_rotate.persistent"] == persistent
 
 
 def _wide(nbit, l=1, Bgbit=2):
@@ -426,8 +435,9 @@ def test_cuda_kernel_matches_ref_main_shape(nlimbs, cuda):
                          ids=lambda p: p.name)
 def test_cuda_kernel_splits_the_contraction_at_one_row(params, cuda):
     """At B = 1 the plan cuts the contraction into ranges, and the sum of
-    the blocks' partials equals the plain product; a split of one range
-    on the same input agrees too."""
+    the blocks' partials equals the plain product, on the loop (grid 0)
+    and on the persistent kernel the rotation takes there; a split of one
+    range on the same input agrees too."""
     lp = params.lvl1
     bk_ext = _random_bk_ext(params, 142, cuda)
     I = bk_ext.shape[1]
@@ -437,15 +447,103 @@ def test_cuda_kernel_splits_the_contraction_at_one_row(params, cuda):
                            depth) > 1
     want = BR.blind_rotate_ref(acc, abar, bk_ext, params)
     assert torch.equal(BR.blind_rotate_cuda(acc, abar, bk_ext, params), want)
+    assert torch.equal(BR._blind_rotate_cuda(acc, abar, bk_ext, params, depth,
+                                             grid=0), want)
     N, nbit, k, l, Bgbit, nd, dbits, off = _decomp_args(params)
     out = acc.clone()
     dec = torch.empty((1, 3 ** depth * I * (N >> depth)), dtype=torch.int8,
                       device=cuda)
     _build.call("cufhe_blind_rotate", cuda, out.data_ptr(), abar.data_ptr(),
                 bk_ext.data_ptr(), dec.data_ptr(), 1, params.n0, N, nbit, k,
-                l, Bgbit, nd, dbits, 4, depth, off, 1)
+                l, Bgbit, nd, dbits, 4, depth, off, 1, 0, None)
     torch.cuda.synchronize()
     assert torch.equal(out, want)
+
+#: every set the port runs, tiny and published, for the persistent kernel
+PERSISTENT_SETS = [P.PALLAS_TINY, P.PALLAS_TINY_K2, P.PALLAS_BG10, P.TINY,
+                   P.TINY_K2, P.PALLAS_KAR, P.PALLAS_BG10_KAR, *FULL_PRESETS]
+#: the rows of each case: AES's narrow levels and the batch tiles' edges,
+#: then the last row count that takes the persistent kernel on this card
+#: ("edge") and the first that takes the loop ("edge+1")
+PERSISTENT_ROWS = [1, 48, 63, 64, 65, 160, 480, "edge", "edge+1"]
+#: fresh inputs a case: a barrier or proxy-fence race shows on some
+PERSISTENT_REPS = 20
+
+
+@functools.lru_cache(maxsize=None)
+def _persistent_edge(params, nlimbs, depth, sms):
+    """The most rows rotation_plan gives the persistent kernel at this set,
+    limb count and depth on a card of `sms` SMs (every row count from 1 to
+    it does)."""
+    lp = params.lvl1
+    I = (lp.k + 1) * lp.l * decomp_digit_limb_plan(lp.Bgbit)[0]
+    B = 1
+    while BR.rotation_plan(B + 1, lp.n, lp.k + 1, I, sms, depth)[1]:
+        B += 1
+    return B
+
+
+@pytest.mark.parametrize("rows", PERSISTENT_ROWS, ids=str)
+@pytest.mark.parametrize("params", PERSISTENT_SETS, ids=lambda p: p.name)
+def test_cuda_persistent_rotation_matches_ref(params, rows, cuda):
+    """The persistent kernel (one cooperative launch a rotation) equals
+    blind_rotate_ref bit for bit at every set, at 4 limbs at each Karatsuba
+    depth from the set's own down to 0 and at 3 limbs where pallas3 runs
+    (N >= 128), at AES's narrow row counts and on each side of the edge
+    where rotation_plan hands over to the loop. Each case runs
+    PERSISTENT_REPS times on fresh inputs, every one against the other
+    launch at the same shape (the loop where the rotation takes the
+    persistent kernel, the persistent kernel on the card's grid where it
+    takes the loop), so a race in the grid barrier or the proxy fence
+    would show; the first also against the plain version (at the
+    published sets, whose plain rotation takes seconds on the card, at 1
+    row and at the edge). A persistent rotation adds 1 to
+    blind_rotate.persistent and 0 to rotdec; a loop n0 to rotdec."""
+    from cufhe_tpu_torch.benchmarks.rotation import cases
+    lp = params.lvl1
+    sms = _build.sms(cuda)
+    for nlimbs, depth in cases(params):
+        bk_ext = _random_bk_ext(params, 160, cuda, nlimbs, depth)
+        edge = _persistent_edge(params, nlimbs, depth, sms)
+        B = {"edge": edge, "edge+1": edge + 1}.get(rows, rows)
+        split, grid = BR.rotation_plan(B, lp.n, lp.k + 1, bk_ext.shape[1],
+                                       sms, depth)
+        assert (grid > 0) == (B <= edge) and grid <= sms
+        for rep in range(PERSISTENT_REPS):
+            acc, abar = _random_inputs(params, B, 1000 * rep + 161, cuda)
+            before = counts()
+            got = BR._blind_rotate_cuda(acc, abar, bk_ext, params, depth)
+            after = counts()
+            assert after["blind_rotate.persistent"] - \
+                before["blind_rotate.persistent"] == (1 if grid else 0)
+            assert after["rotdec"] - before["rotdec"] == \
+                (0 if grid else params.n0)
+            other = BR._blind_rotate_cuda(acc, abar, bk_ext, params, depth,
+                                          grid=0 if grid else sms)
+            assert torch.equal(got, other), (nlimbs, depth, B, rep)
+            if rep == 0 and (params not in FULL_PRESETS
+                             or rows in (1, "edge")):
+                assert torch.equal(got, BR._blind_rotate_ref(
+                    acc, abar, bk_ext, params, depth)), (nlimbs, depth, B)
+
+
+def test_cuda_persistent_rotation_refuses_a_grid_without_its_counter(cuda):
+    """The C entry refuses a persistent launch without its barrier counter
+    (cudaErrorInvalidValue) and launches nothing."""
+    params = P.TINY
+    bk_ext = _random_bk_ext(params, 162, cuda)
+    acc, abar = _random_inputs(params, 3, 163, cuda)
+    N, nbit, k, l, Bgbit, nd, dbits, off = _decomp_args(params)
+    dec = torch.empty((3, bk_ext.shape[1] * N), dtype=torch.int8,
+                      device=cuda)
+    out = acc.clone()
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        _build.call("cufhe_blind_rotate", cuda, out.data_ptr(),
+                    abar.data_ptr(), bk_ext.data_ptr(), dec.data_ptr(), 3,
+                    params.n0, N, nbit, k, l, Bgbit, nd, dbits, 4, 0, off, 2,
+                    4, None)
+    torch.cuda.synchronize()
+    assert torch.equal(out, acc)
 
 
 @pytest.mark.parametrize("chunk", ["", "2"], ids=["one-step", "chunked"])
@@ -721,7 +819,7 @@ def test_cuda_refuses_other_limb_counts(cuda):
         return lib.cufhe_blind_rotate(
             acc.data_ptr(), abar.data_ptr(), bk.data_ptr(), dec.data_ptr(),
             rows, params.n0, N, nbit, k, l, Bgbit, nd, dbits, nlimbs, depth,
-            off, split, torch.cuda.current_stream().cuda_stream)
+            off, split, 0, None, torch.cuda.current_stream().cuda_stream)
 
     for nlimbs in (0, 1, 2, 5, 8):
         assert call(P.PALLAS_TINY, nlimbs) == 1, nlimbs

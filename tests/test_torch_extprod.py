@@ -5,7 +5,11 @@ extprod_plan's split, through the kernel's grid and range formulas, must
 cover every (output tile, limb, batch tile, contraction stage) of a step
 exactly once and keep the card's SMs busy; at Karatsuba depth d > 0 every
 (output tile, batch tile, leaf, stage of the leaf), with each output
-quarter summing each of the leaves that feed it once. The fragment map is a
+quarter summing each of the leaves that feed it once. rotation_plan takes
+the persistent kernel exactly where that split is > 1, on a grid of at most
+one block an SM; its blocks' shares of a step (stream-K cuts snapped to a
+leaf's end) and its rotdec walk cover every stage and row once, modelled
+from the source's formulas. The fragment map is a
 NumPy model of what csrc/blind_rotate.cu's extprod_kernel does: the
 producer's key windows in shared memory (their order, offsets and bytes),
 then each consumer lane's four A registers per limb and 32-byte k-step,
@@ -92,17 +96,24 @@ def test_grid_and_range_formulas_are_the_kernels():
     """kernel_stages, kernel_tiles and kernel_ranges are the source's."""
     src = re.sub(r"\s+", " ", SOURCE.read_text())
     for text in (
-            "const int LN = N >> D;",
-            "const int KB = I * LN;",
-            "const int S = (KB + kStageK - 1) / kStageK;",
-            "const int T = S * E::kLeaves;",
-            "static_cast<long long>(blockIdx.z) * T / gridDim.z",
-            "static_cast<long long>(blockIdx.z + 1) * T / gridDim.z",
-            "const int v = D > 0 ? s / S : 0;",
-            "leaf_quarters(s / S, D)",
-            "if (s + 1 == s1 || (s + 1) % S == 0) {",
+            "st.LN = N >> D;",
+            "st.KB = I * st.LN;",
+            "st.S = (st.KB + kStageK - 1) / kStageK;",
+            "st.T = st.S * pow3(D);",
+            "it.go0 = x * kOutTile;",
+            "it.b0 = y * kRowTile;",
+            "it.s0 = s0;",
+            "it.s1 = s1;",
+            "ext_item<SEG>( st, blockIdx.x, blockIdx.y, "
+            "static_cast<int>(static_cast<long long>(blockIdx.z) * st.T / "
+            "gridDim.z), "
+            "static_cast<int>(static_cast<long long>(blockIdx.z + 1) * st.T / "
+            "gridDim.z));",
+            "const int v = D > 0 ? s / st.S : 0;",
+            "leaf_quarters(s / st.S, D)",
+            "if (s + 1 == it.s1 || (s + 1) % st.S == 0) {",
             "const int LN = N >> D; const EncodeTiled fn",
-            "const dim3 grid((kp1 * LN + kOutTile - 1) / kOutTile, "
+            "const dim3 ext_grid((kp1 * LN + kOutTile - 1) / kOutTile, "
             "(B + kRowTile - 1) / kRowTile, split);",
             "constexpr int kOutTile = kConsumers * kWgOut;"):
         assert text in src, text
@@ -238,6 +249,210 @@ def test_leaf_plan_at_tfhepp_128bit(B, split_over_1):
     assert (nx, ny) == (4, -(-B // 64))
     assert (split > 1) == split_over_1
     assert split == (27 if split_over_1 else 1)
+
+
+# -- the persistent rotation's launch and walk ------------------------------
+
+def _digit_rows_of(params) -> int:
+    """I = (k+1) l nd of a set."""
+    lp = params.lvl1
+    return (lp.k + 1) * lp.l * decomp_digit_limb_plan(lp.Bgbit)[0]
+
+
+#: (set, key limbs, Karatsuba depth): every depth from the set's own (at
+#: that limb count) down to 0, as the tests and benchmarks.rotation run them
+PATH_CASES = [(p, nl, d) for p in P.PRESETS.values() for nl in (4, 3)
+              if nl == 4 or p.lvl1.n >= BR.PALLAS3_MIN_N
+              for d in range(BR.kar_depth(p, nl) + 1)]
+#: batch sizes the path choice is checked at: every row count to 64, then
+#: every 7th and the edges of each batch tile to 4096
+PATH_ROWS = sorted(set(range(1, 65)) | set(range(65, 4097, 7))
+                   | {64 * t + e for t in range(1, 65) for e in (0, 1)})
+
+
+@pytest.mark.parametrize(
+    "params,nlimbs,depth", PATH_CASES,
+    ids=[f"{p.name}-limbs{nl}-d{d}" for p, nl, d in PATH_CASES])
+def test_persistent_path_is_where_the_plan_splits(params, nlimbs, depth):
+    """rotation_plan takes the persistent kernel exactly where extprod_plan
+    splits the contraction, with a grid of one block an SM, or one a stage
+    of the step's tiles x stages where that is fewer; the loop (grid 0)
+    elsewhere."""
+    lp = params.lvl1
+    N, kp1, I = lp.n, lp.k + 1, _digit_rows_of(params)
+    for B in PATH_ROWS:
+        split, grid = BR.rotation_plan(B, N, kp1, I, H100_SMS, depth)
+        assert split == BR.extprod_plan(B, N, kp1, I, H100_SMS, depth)
+        assert (grid > 0) == (split > 1), B
+        if grid:
+            nx, ny = kernel_tiles(B, N, kp1, depth)
+            units = nx * ny * kernel_stages(N, I, depth)
+            assert grid == min(units, H100_SMS), B
+            assert nx * ny < H100_SMS         # the tiles leave SMs idle
+
+
+@pytest.mark.parametrize("params", [P.TFHEPP_128, P.CONCRETE],
+                         ids=lambda p: p.name)
+def test_nand_cells_take_the_loop(params):
+    """Both NAND cells' 4096 rows fill the card: split 1, the loop of
+    2 n0 launches; AES's 48 to 480 rows at tfhepp_128bit take the
+    persistent kernel."""
+    lp = params.lvl1
+    plan = BR.rotation_plan(4096, lp.n, lp.k + 1, _digit_rows_of(params),
+                            H100_SMS, BR.kar_depth(params))
+    assert plan == (1, 0)
+    if params is P.TFHEPP_128:
+        for B in (1, 48, 160, 480):
+            assert BR.rotation_plan(B, lp.n, lp.k + 1, _digit_rows_of(params),
+                                    H100_SMS, 2)[1] > 0
+
+
+@pytest.mark.parametrize("sms", [1, 16, 78, 114, 132, 144])
+def test_persistent_grid_never_exceeds_the_sms(sms):
+    """On a card of any SM count the cooperative grid is at most one block
+    an SM (every block resident, as grid_sync needs) and at least one."""
+    for params in P.PRESETS.values():
+        lp = params.lvl1
+        N, kp1, I = lp.n, lp.k + 1, _digit_rows_of(params)
+        for B in (1, 7, 48, 64, 65, 160, 480, 1024, 4096):
+            split, grid = BR.rotation_plan(B, N, kp1, I, sms,
+                                           BR.kar_depth(params))
+            assert 0 <= grid <= sms
+            assert (grid > 0) == (split > 1)
+
+
+def rotdec_rows_a_block(N: int, depth: int) -> int:
+    """rotdec_plan's rows a block (of kRotThreads threads, 1 << tpr_log a
+    row), from the source's rule."""
+    nbit = N.bit_length() - 1
+    tpr_log = nbit - 2 - depth
+    while (1 << tpr_log) > C["kRotThreads"] or (
+            tpr_log > 0 and (1 << (nbit - 2 - tpr_log)) < C["kRotQuads"]):
+        tpr_log -= 1
+    return C["kRotThreads"] >> tpr_log
+
+
+def test_persistent_walk_formulas_are_the_kernels():
+    """The walk modelled below is the source's: the step's tiles x stages,
+    tile-major, cut into gridDim.x equal shares of stages, each cut moved
+    to a leaf's end within kShareSnap stages (for_share, share_cut),
+    rotdec's blocks strided by gridDim.x, two grid_sync a step, each
+    waiting for gridDim.x more arrivals."""
+    src = re.sub(r"\s+", " ", SOURCE.read_text())
+    for text in (
+            "const int nx = (st.kp1 * st.LN + kOutTile - 1) / kOutTile;",
+            "const int ny = (st.B + kRowTile - 1) / kRowTile;",
+            "const int units = nx * ny * st.T;",
+            "const int u1 = share_cut(units, st.S, blockIdx.x + 1);",
+            "for (int u = share_cut(units, st.S, blockIdx.x); u < u1;) {",
+            "const int u = static_cast<int>(static_cast<long long>(units) * b "
+            "/ gridDim.x);",
+            "const int r = u % S;",
+            "return r <= kShareSnap ? u - r : S - r <= kShareSnap ? u + S - r "
+            ": u;",
+            "const int tile = u / st.T;",
+            "const int t0 = tile * st.T;",
+            "const int s1 = min(st.T, u1 - t0);",
+            "fn(ext_item<SEG>(st, tile % nx, tile / nx, u - t0, s1));",
+            "u = t0 + s1;",
+            "for (int blk = blockIdx.x; blk < a.rot_blocks; "
+            "blk += gridDim.x) {",
+            "return (B * kp1 + plan.rows - 1) / plan.rows;",
+            "int tpr_log = nbit - 2 - depth;",
+            "} while (seen < target);"):
+        assert text in src, text
+    # each role passes grid_sync twice a step, the targets rising by the
+    # grid each time: the producer warpgroup and the consumers, so the
+    # block's barriers pair up; both walk for_share
+    for j in (1, 2):
+        assert src.count(f"grid_sync(arrivals, gridDim.x * (2 * i + {j}));") \
+            == 2
+    assert src.count("for_share<SEG>(st, nx, ny, [&](const ExtItem& it) {") \
+        == 2
+
+
+def share_cut(units: int, S: int, b: int, grid: int) -> int:
+    """share_cut: cut b of grid at b/grid of the units, moved to the
+    nearest multiple of S within kShareSnap."""
+    u = units * b // grid
+    r, snap = u % S, C["kShareSnap"]
+    return u - r if r <= snap else u + S - r if S - r <= snap else u
+
+
+def share_items(blk: int, grid: int, nx: int, ny: int, T: int,
+                S: int) -> list:
+    """for_share's items of block blk: (x, y, s0, s1) in order."""
+    units = nx * ny * T
+    u, u1 = share_cut(units, S, blk, grid), share_cut(units, S, blk + 1, grid)
+    out = []
+    while u < u1:
+        tile = u // T
+        t0 = tile * T
+        s0, s1 = u - t0, min(T, u1 - t0)
+        out.append((tile % nx, tile // nx, s0, s1))
+        u = t0 + s1
+    return out
+
+
+WALK_CASES = [(P.TFHEPP_128, 4, 2, B) for B in (1, 48, 63, 64, 65, 160, 480,
+                                                1408)] + \
+    [(P.CONCRETE, 4, 0, B) for B in (1, 160, 640)] + \
+    [(P.CGGI19, 4, 1, 48), (P.TFHEPP_128, 3, 0, 160), (P.TINY_K2, 4, 0, 3),
+     (P.PALLAS_KAR, 4, 2, 129)]
+
+
+@pytest.mark.parametrize(
+    "params,nlimbs,depth,B", WALK_CASES,
+    ids=[f"{p.name}-limbs{nl}-d{d}-B{B}" for p, nl, d, B in WALK_CASES])
+def test_persistent_walk_covers_every_item_once(params, nlimbs, depth, B):
+    """In a step of the persistent kernel the blocks' shares take every
+    (output tile, batch tile, limb, stage) of the step once, each block
+    within 1 + 2 kShareSnap stages of the others, each item inside one
+    tile; every leaf
+    a range cuts is folded at its end (the consumer's rule), so each
+    output quarter sums each stage of each leaf that feeds it once. Its
+    rotdec walk takes every block of rotdec_kernel's grid once, so every
+    row (b, j) once. The barrier counter's targets rise by the grid at
+    each of the 2 n0 barriers and stay inside 32 bits."""
+    lp = params.lvl1
+    N, kp1, I = lp.n, lp.k + 1, _digit_rows_of(params)
+    split, grid = BR.rotation_plan(B, N, kp1, I, H100_SMS, depth)
+    assert split > 1 and grid > 0
+    nx, ny = kernel_tiles(B, N, kp1, depth)
+    T = kernel_stages(N, I, depth)
+    S = T // 3 ** depth
+    seen, fed, work = {}, {}, []
+    for blk in range(grid):
+        items = share_items(blk, grid, nx, ny, T, S)
+        work.append(sum(s1 - s0 for _, _, s0, s1 in items))
+        for x, y, s0, s1 in items:
+            assert 0 <= s0 < s1 <= T and x < nx and y < ny
+            folds = [s for s in range(s0, s1) if s + 1 == s1
+                     or (s + 1) % S == 0]
+            for s in range(s0, s1):
+                for li in range(nlimbs):
+                    seen[x, y, li, s] = seen.get((x, y, li, s), 0) + 1
+                # the stage's leaf sums land at the next fold, in the
+                # quarters its leaf feeds
+                fold = min(f for f in folds if f >= s)
+                assert fold // S == s // S
+                for q in BR.leaf_quarters(s // S, depth):
+                    fed[x, y, q, s] = fed.get((x, y, q, s), 0) + 1
+    assert set(seen.values()) == {1}
+    assert len(seen) == nx * ny * nlimbs * T
+    assert set(fed.values()) == {1}
+    assert len(fed) == nx * ny * 2 ** depth * 2 ** depth * S
+    assert max(work) - min(work) <= 1 + 2 * C["kShareSnap"]
+    rows = rotdec_rows_a_block(N, depth)
+    rot_blocks = -(-B * kp1 // rows)
+    covered = {}
+    for blk in range(grid):
+        for rb in range(blk, rot_blocks, grid):
+            for row in range(rb * rows, min((rb + 1) * rows, B * kp1)):
+                covered[row] = covered.get(row, 0) + 1
+    assert set(covered.values()) == {1} and len(covered) == B * kp1
+    targets = [grid * (j + 1) for j in range(2 * params.lvl0.dim)]
+    assert targets[-1] < 2 ** 32
 
 
 # -- the kernel's fragment map, as a model --------------------------------

@@ -107,6 +107,30 @@ ptxas info    : Used 28 registers, used 1 barriers
     assert report[0][0].split("<")[0] == "rotdec_kernel"
 
 
+def test_ptxas_report_names_the_persistent_instances():
+    """persistent_extprod_kernel<NL, SEG, D, L, ND> reports under its five
+    template arguments, one of phase 2's PERSISTENT_INSTANCES, and phase
+    20's SASS count (instances whose name starts with extprod) leaves it
+    out."""
+    name = ("_ZN48_GLOBAL__N__eb88de2c_15_blind_rotate_cu_1b2cd1d325persistent"
+            "_extprod_kernelILi4ELi128ELi2ELi3ELi1EEEv14CUtensorMap_stPjPKiPKa"
+            "PaS2_NS_11PersistArgsE")
+    log = (f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
+           f"ptxas info    : Function properties for {name}\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+           "loads\n"
+           "ptxas info    : Used 168 registers, used 2 barriers\n")
+    report = smoke.ptxas_report(log)
+    assert report == [("persistent_extprod_kernel<4, 128, 2, 3, 1>", 168,
+                       "0 bytes spill stores, 0 bytes spill loads")]
+    assert report[0][0] in smoke.PERSISTENT_INSTANCES
+    assert len(set(smoke.PERSISTENT_INSTANCES)) == 8
+    sass = f"        Function : {name}\n        IGMMA.64x64x32.S8.S8 R24\n"
+    counts = smoke.sass_mma_counts(sass, "IGMMA")
+    assert counts == {"persistent_extprod_kernel<4, 128, 2, 3, 1>": 1}
+    assert not [k for k in counts if k.startswith("extprod")]
+
+
 def test_rotdec_bound_is_the_benchs_bound():
     """Phase 6 (the bench's measure) and phase 10 (bound) hold
     rotdec_kernel against the same device-memory rate, the port's own."""
