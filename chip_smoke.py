@@ -126,7 +126,13 @@ Phases, each raising on failure:
      right, all 257 rotations persistent; the loop and the persistent
      kernel timed a step at tfhepp_128bit from 1 to 2048 rows
      (benchmarks.rotation.measure_paths). Phase 5's NAND chain at batch
-     4096 takes the loop: no persistent launch.
+     4096 takes the loop: no persistent launch;
+ 22. the MUX at cggi19 (Karatsuba depth 1, the mux_b4096.cggi19 cell's
+     path and width): Context.mux and nmux at batch 4096 on keys and inputs
+     that fhebench/reference made from a seed, equal as uint32 to
+     fhebench/reference/mux.py and decrypting to the cleartext MUX; two
+     depth-1 rotations on the loop and one key switch a MUX, one `mux`
+     count of 4096 rows.
 
 Prints the card line, a {"kernels": [...]} line (blind_rotate, rotdec,
 key_switch, mxu_peak, mxu_peak_wgmma, blind_rotate_pallas3,
@@ -1466,6 +1472,72 @@ def phase_persistent(ctx, sk, tag: str) -> dict:
                                       r["bound_us_a_step"]] for r in paths}}
 
 
+def phase_mux(tag: str) -> None:
+    """22. Context.mux at cggi19 (Karatsuba depth 1), BATCH rows, on the
+    card: keys and inputs made from a seed by the benchmark's plain
+    reference (fhebench/reference), the port's keys built from them as
+    fhebench.harness.Session builds them; the MUX and then the NMUX of the
+    same inputs equal word for word to fhebench/reference/mux.py, each
+    decrypting to the cleartext MUX; a MUX launches two rotations, both at
+    depth 1 on the loop of 2 n0 launches (no persistent launch at this
+    width), and one key switch, and counts one `mux` of BATCH rows."""
+    import torch
+    from cufhe_tpu_torch import golden as G
+    from cufhe_tpu_torch.models.api import Context, Ctxt
+    from cufhe_tpu_torch.utils.spans import counts
+    from fhebench import harness as H
+    from fhebench.reference import mux as M
+    from fhebench.reference import tfhe as R
+
+    cfg = H._json(os.path.join(REPO, "fhebench", "configs", "cggi19.json"))
+    dev = torch.device(DEV)
+    p = R.Params.from_config(cfg)
+    seed = 2 ** 33 + 23
+    sk = R.keygen(p, seed, dev)
+    ek = R.make_eval_key(p, sk, seed)
+    ctx = Context(G.EvalKey(H.port_params(cfg),
+                            ek.bk.cpu().numpy().astype("uint32"),
+                            ek.ksk.cpu().numpy().astype("uint32")),
+                  device=dev)
+    g = R.generator(seed, 2, dev)
+    bits = [torch.randint(0, 2, (BATCH,), generator=g, device=dev)
+            for _ in range(3)]
+    cts = [R.encrypt_bits(p, sk, b, g) for b in bits]
+    port = [Ctxt(H.Session.to_port(ct), 0) for ct in cts]
+    outs, bad = {}, []
+    for negate in (False, True):
+        torch.cuda.synchronize()
+        before = counts()
+        t0 = time.perf_counter()
+        out = ctx.mux(*port, negate=negate)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launched = counts() - before
+        want = {"blind_rotate": 2, "blind_rotate.kar1": 2, "key_switch": 1,
+                "rotdec": 2 * p.n0, "mux": 1, "mux.rows": BATCH,
+                "blind_rotate.persistent": 0}
+        got = {k: launched[k] for k in want}
+        log(f"{'nmux' if negate else 'mux'} at cggi19, {BATCH} rows: "
+            f"{seconds * 1e3:.1f} ms (host clock), counts {got} {tag}")
+        if got != want:
+            bad.append(f"counts {got}, want {want}")
+        outs[negate] = H.Session.from_port(out.data)
+    del ctx, port
+    torch.cuda.empty_cache()
+    for negate, got in outs.items():
+        ref = M.mux(p, ek, *cts, negate=negate)
+        mismatched = int((got != ref).sum())
+        wrong = int((R.decrypt_bits(sk, got)
+                     != M.plain_mux(*bits, negate=negate)).sum())
+        log(f"{'nmux' if negate else 'mux'} at cggi19 vs "
+            f"fhebench/reference/mux.py: {mismatched} mismatched words of "
+            f"{got.numel()}, {wrong} wrong bits of {BATCH}")
+        if mismatched or wrong:
+            bad.append(f"{mismatched} mismatched words, {wrong} wrong bits")
+    if bad:
+        raise AssertionError(f"mux at cggi19: {'; '.join(bad)}")
+
+
 def phase_profile(ctx, sk, tag: str) -> None:
     """10. One lvl0 NAND at batch 4096 under torch.profiler: device time
     and launches of the product kernel, of rotdec_kernel and of the key
@@ -1989,6 +2061,8 @@ def main() -> int:
     pallas3 = phase("20", phase_pallas3, ek, sk, p5, tag)
     # 21. the persistent rotation, on phase 4's context
     persistent = phase("21", phase_persistent, ctx, sk, tag)
+    # 22. the MUX at cggi19 against the benchmark's plain reference
+    phase("22", phase_mux, tag)
     # 14. the key lifecycle, last: it swaps the context's preset
     phase("14", phase_lifecycle, ctx, sk, ek, eks["concrete"], tag)
     log("host seconds per phase: " + ", ".join(

@@ -27,7 +27,7 @@ import torch
 
 from ..params import GateParams
 from ..torus import i32, srl
-from ..utils.spans import span
+from ..utils.spans import count, span
 from . import blind_rotate as BR
 from . import ntt as NTT
 from .keys import DeviceKeys
@@ -231,7 +231,9 @@ def mux_lvl0(inc, in1, in0, keys: DeviceKeys, params: GateParams,
     """Mux(inc ? in1 : in0) on lvl0 inputs (nmux with negate): the
     AND(c, in1) and ANDNY(c, in0) rotations summed, b += mu (negated
     first for nmux), extraction, key switch."""
-    with span("cufhe.gate"):
+    with span("cufhe.gate.mux"):
+        count("mux")
+        count("mux.rows", inc.shape[0])
         n0 = params.lvl0.dim
         mu0, mu1 = params.lvl0.mu, params.lvl1.mu
         a1, b1 = _pre_add(inc, in1, 1, 1, i32(-mu0), n0)
@@ -250,7 +252,9 @@ def mux_lvl1(inc, in1, in0, keys: DeviceKeys, params: GateParams,
              negate: bool = False, backend: str = "auto") -> torch.Tensor:
     """Mux on lvl1 inputs: two key switches with the pre-add fused, two
     rotations, the TRLWEs summed, extraction, b +- mu."""
-    with span("cufhe.gate"):
+    with span("cufhe.gate.mux"):
+        count("mux")
+        count("mux.rows", inc.shape[0])
         n0 = params.lvl0.dim
         d1 = params.lvl1.k * params.lvl1.n
         mu1 = params.lvl1.mu

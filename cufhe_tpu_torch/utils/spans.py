@@ -10,7 +10,9 @@ record_function costs about 13. Spans are named cufhe.<layer>.<what>:
     cufhe.executor.run    run_schedule, each cycle of run_schedule_loop
     cufhe.executor.plan   a _Program laid out: slots, plan, index uploads
     cufhe.executor.step   one step: gather, gate program, scatter
-    cufhe.gate            gate_lvl0/1, mux_lvl0/1 (ops.bootstrap)
+    cufhe.gate            gate_lvl0/1 (ops.bootstrap): the two-input gates
+    cufhe.gate.mux        mux_lvl0/1 (ops.bootstrap): mux and nmux, two
+                          rotations a row
     cufhe.key_switch      ops.keyswitch.key_switch
     cufhe.blind_rotate    ops.blind_rotate.blind_rotate (on CUDA the C
                           launch loop of cufhe_blind_rotate)
@@ -23,9 +25,13 @@ on; counts() is a snapshot of them, zero for a name never counted:
     blind_rotate.limbs4   of them with the exact four-limb key
     blind_rotate.limbs3   of them with the three-limb (pallas3) key
     blind_rotate.kar0/1/2 of them at each Karatsuba depth of the product
-                          (2 at tfhepp_128bit, 0 at concrete and pallas3)
+                          (2 at tfhepp_128bit, 1 at cggi19, 0 at concrete
+                          and pallas3)
     rotdec                rotate-and-decompose kernel launches (n0 per
                           rotation, one per rotdec_cuda call)
+    mux                   mux programs run (mux_lvl0/1: one a Context.mux
+                          or nmux call, one a shard under a mesh)
+    mux.rows              rows they muxed
     key_switch            key switch kernel launches (one a key switch on
                           CUDA: a lvl0 gate or mux 1, a lvl1 gate 1, a lvl1
                           mux 2; ops.keyswitch.key_switch_cuda)

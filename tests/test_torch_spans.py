@@ -95,9 +95,10 @@ def test_span_records_only_while_a_profiler_does():
 @pytest.mark.parametrize("chunk", ["", "1"])
 @pytest.mark.parametrize("circuit", sorted(CIRCUITS))
 def test_run_schedule_span_tree(monkeypatch, tiny, circuit, chunk):
-    """run > plan; run > step > gate > {blind_rotate, key_switch}; one step
-    span per planned step, one blind_rotate span per planned rotation.
-    CUFHE_EXEC_CHUNK=1 cuts each level into one step per gate."""
+    """run > plan; run > step > gate (two-input) or gate.mux (mux) >
+    {blind_rotate, key_switch}; one step span per planned step, one
+    blind_rotate span per planned rotation, two a mux. CUFHE_EXEC_CHUNK=1
+    cuts each level into one step per gate."""
     monkeypatch.setenv("CUFHE_EXEC_CHUNK", chunk)
     ctx, inputs = tiny
     sched, _ = compile_bristol(CIRCUITS[circuit])
@@ -113,15 +114,23 @@ def test_run_schedule_span_tree(monkeypatch, tiny, circuit, chunk):
     assert parents["cufhe.executor.plan"] == ["cufhe.executor.run"]
     steps = sum(len(plan) for plan in plans)
     assert parents["cufhe.executor.step"] == ["cufhe.executor.run"] * steps
-    gates = sum(step[0] in ("two", "mux") for plan in plans for step in plan)
-    assert parents["cufhe.gate"] == ["cufhe.executor.step"] * gates
-    assert parents["cufhe.blind_rotate"] == \
-        ["cufhe.gate"] * EX.plan_rotations(plans)
+    steps_of = [step[0] for plan in plans for step in plan]
+    kinds = {"cufhe.gate": steps_of.count("two"),
+             "cufhe.gate.mux": steps_of.count("mux")}
+    programs = [name for name, n in kinds.items() if n]
+    assert programs, "the circuit runs no bootstrapped gate"
+    for name in programs:
+        assert parents[name] == ["cufhe.executor.step"] * kinds[name]
+    assert sorted(parents["cufhe.blind_rotate"]) == sorted(
+        ["cufhe.gate"] * kinds["cufhe.gate"]
+        + ["cufhe.gate.mux"] * 2 * kinds["cufhe.gate.mux"])
+    assert len(parents["cufhe.blind_rotate"]) == EX.plan_rotations(plans)
     # every gate at lvl0 ends in one key switch, a mux included
-    assert parents["cufhe.key_switch"] == ["cufhe.gate"] * gates
+    assert sorted(parents["cufhe.key_switch"]) == sorted(
+        name for name in programs for _ in range(kinds[name]))
     assert set(parents) == {"cufhe.executor.run", "cufhe.executor.plan",
-                            "cufhe.executor.step", "cufhe.gate",
-                            "cufhe.blind_rotate", "cufhe.key_switch"}
+                            "cufhe.executor.step", "cufhe.blind_rotate",
+                            "cufhe.key_switch", *programs}
     # the spans nest in time as well as in the tree
     for ev, _ in got:
         if ev.cpu_parent is not None:
