@@ -18,10 +18,17 @@ its tail-bucket padding exist only to bound XLA compiles and are left out
 gate call goes through Context._map, so it runs the context's backend and,
 under a mesh, cuts the step's rows across the mesh's devices; the batch
 must then divide by the mesh's size.
+
+A schedule's program (slot map, step plan and every index tensor a call
+reads, _Program) is laid out once for each (context, schedule object,
+batch, level, step chunk) and reused by every later call with that key
+(_program): a call whose program is cached uploads nothing before its
+first kernel.
 """
 from __future__ import annotations
 
 import os
+import weakref
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
@@ -29,6 +36,7 @@ import torch
 
 from ..models.api import Context, Ctxt
 from ..ops import bootstrap as B
+from ..params import LweParams
 from ..torus import i32
 from ..utils.spans import count, span
 from .graph import Schedule
@@ -234,44 +242,43 @@ def _check_inputs(ctx: Context, sched: Schedule, inputs: Sequence[Ctxt]):
 
 
 class _Program:
-    """A schedule laid out for one batch shape and level on a context: its
-    slot map, register-file size and step plan."""
+    """A schedule laid out for one batch and level on a context: its
+    register-file size, its step plan, the slots of its inputs and outputs
+    and its constants' trivial ciphertexts, every tensor on the context's
+    device. Nothing in it depends on the ciphertexts a call brings."""
 
-    def __init__(self, ctx: Context, sched: Schedule, batch: int,
-                 level: int):
+    def __init__(self, sched: Schedule, batch: int, level: int, chunk: int,
+                 lp: LweParams, dev: torch.device):
         count("executor.plans")
-        with span("cufhe.executor.plan"):
-            lp = ctx.params.lvl0 if level == 0 else ctx.params.lvl1
-            self.width = lp.dim + 1
-            self.mu = lp.mu
-            self.level = level
-            self.slot = allocate_slots(sched)
-            self.num_slots = max(self.slot.values()) + 1 if self.slot else 1
-            self.plans = plan_schedule(sched, self.slot, _exec_chunk(batch),
-                                       lp.mu, ctx.device)
-            self.const_rows = [(self.slot[w], v)
-                               for w, v in sched.consts.items()]
+        self.width = lp.dim + 1
+        self.level = level
+        slot = allocate_slots(sched)
+        self.num_slots = max(slot.values()) + 1 if slot else 1
+        self.plans = plan_schedule(sched, slot, chunk, lp.mu, dev)
 
-    def registers(self, ctx: Context, rows: List[int],
-                  planes: List[torch.Tensor]) -> torch.Tensor:
-        """A fresh register file holding the input planes at `rows` and the
-        trivial ciphertexts of the constants."""
-        Bsz = planes[0].shape[0]
-        regs = torch.zeros((self.num_slots, Bsz, self.width),
-                           dtype=torch.int32, device=ctx.device)
-        for row, val in self.const_rows:
-            regs[row] = trivial_ciphertext(val, self.width - 1, self.mu, Bsz,
-                                           ctx.device)
-        regs[torch.tensor(rows, dtype=torch.int64,
-                          device=ctx.device)] = torch.stack(planes)
+        def rows(wires):
+            return torch.tensor([slot[w] for w in wires], dtype=torch.int64,
+                                device=dev)
+        self.in_rows = rows(sched.inputs)
+        self.out_rows = rows(sched.outputs)
+        self.const_rows = rows(sched.consts)
+        self.const_data = torch.stack(
+            [trivial_ciphertext(v, lp.dim, lp.mu, batch, dev)
+             for v in sched.consts.values()]) if sched.consts else None
+
+    def registers(self, planes: List[torch.Tensor]) -> torch.Tensor:
+        """A fresh register file holding the input planes and the trivial
+        ciphertexts of the constants."""
+        regs = torch.zeros((self.num_slots, planes[0].shape[0], self.width),
+                           dtype=torch.int32, device=planes[0].device)
+        if self.const_data is not None:
+            regs.index_copy_(0, self.const_rows, self.const_data)
+        regs.index_copy_(0, self.in_rows, torch.stack(planes))
         return regs
 
-    def outputs(self, regs: torch.Tensor,
-                sched: Schedule) -> List[torch.Tensor]:
+    def outputs(self, regs: torch.Tensor) -> List[torch.Tensor]:
         """The output rows, copied out of the register file."""
-        rows = torch.tensor([self.slot[w] for w in sched.outputs],
-                            dtype=torch.int64, device=regs.device)
-        return list(regs.index_select(0, rows).unbind(0))
+        return list(regs.index_select(0, self.out_rows).unbind(0))
 
     def run(self, ctx: Context, regs: torch.Tensor) -> torch.Tensor:
         ctx._check_keys()                   # raises on released keys
@@ -282,19 +289,51 @@ class _Program:
         return regs
 
 
+#: context -> schedule -> {(batch, level, step chunk, level params):
+#: _Program}. Both are held weakly, so a program lives no longer than its
+#: context and its schedule, and a freed schedule's programs cannot be met
+#: by a new schedule that reuses its id.
+_PROGRAMS = weakref.WeakKeyDictionary()
+
+
+def _program(ctx: Context, sched: Schedule, batch: int,
+             level: int) -> _Program:
+    """The program of `sched` for `batch` rows at `level` on `ctx`: built
+    on its key's first call (counter executor.plans), taken from the cache
+    on every later one (counter executor.plan_hits). The step chunk is part
+    of the key, as CUFHE_EXEC_CHUNK may change between calls, and so are
+    the level's LWE parameters (lvl1's: those of its extracted samples),
+    which Context.reinitialize may change. Every call opens one
+    cufhe.executor.plan span."""
+    with span("cufhe.executor.plan"):
+        key = (batch, level, _exec_chunk(batch),
+               ctx.params.lvl0 if level == 0 else ctx.params.lvl1.as_lwe())
+        by_key = _PROGRAMS.setdefault(
+            ctx, weakref.WeakKeyDictionary()).setdefault(sched, {})
+        prog = by_key.get(key)
+        if prog is None:
+            prog = by_key[key] = _Program(sched, *key, ctx.device)
+        else:
+            count("executor.plan_hits")
+        return prog
+
+
 def schedule_steps(ctx: Context, sched: Schedule, batch: int,
                    level: int = 0) -> List[List[tuple]]:
     """The step plan run_schedule follows for `batch` rows at `level`
-    (see plan_schedule)."""
-    return _Program(ctx, sched, batch, level).plans
+    (see plan_schedule): the cached program's, built here if no call has
+    built it yet."""
+    return _program(ctx, sched, batch, level).plans
 
 
 def precompile_schedule(ctx: Context, sched: Schedule, batch: int,
                         level: int = 0) -> int:
-    """Build the kernels run_schedule will launch (nothing to build on the
-    CPU) and return the number of distinct step shapes of its plan: the
-    programs a per-shape CUDA-graph capture would record. Under a mesh it
-    returns 0, as the JAX package's does."""
+    """Build the program run_schedule will take for `batch` rows at
+    `level` (the first call then reuses it) and the kernels it will launch
+    (nothing to build on the CPU), and return the number of distinct step
+    shapes of its plan: the programs a per-shape CUDA-graph capture would
+    record. Under a mesh it returns 0, as the JAX package's does."""
+    plans = schedule_steps(ctx, sched, batch, level)
     if ctx.mesh is not None:
         return 0
     if ctx.device.type == "cuda":
@@ -302,8 +341,7 @@ def precompile_schedule(ctx: Context, sched: Schedule, batch: int,
         load()
     shapes = {(step[0], step[1].shape[0], step[-1] if step[0] != "two"
                else None)
-              for plan in schedule_steps(ctx, sched, batch, level)
-              for step in plan}
+              for plan in plans for step in plan}
     return len(shapes)
 
 
@@ -314,16 +352,18 @@ def run_schedule(ctx: Context, sched: Schedule, inputs: Sequence[Ctxt],
     in declaration order, on the context's device. Runs on the current
     stream after the inputs' producers (Ctxt.ready). A circuit with neither
     inputs nor constants has nothing to run and returns []; one with
-    constants but no inputs has no batch shape and raises."""
+    constants but no inputs has no batch shape and raises.
+
+    The program is cached per context, schedule object, batch, level and
+    step chunk (_program), so a schedule must not be changed once it has
+    run: compile a new one instead."""
     if not inputs and not sched.inputs and not sched.consts:
         return []
     Bsz, _, lvl = _check_inputs(ctx, sched, inputs)
     with span("cufhe.executor.run"):
-        prog = _Program(ctx, sched, Bsz, lvl)
-        regs = prog.registers(ctx, [prog.slot[w] for w in sched.inputs],
-                              ctx._inputs(*inputs))
-        prog.run(ctx, regs)
-        return ctx._outputs(prog.outputs(regs, sched), lvl)
+        prog = _program(ctx, sched, Bsz, lvl)
+        regs = prog.run(ctx, prog.registers(ctx._inputs(*inputs)))
+        return ctx._outputs(prog.outputs(regs), lvl)
 
 
 def run_schedule_loop(ctx: Context, sched: Schedule, inputs: Sequence[Ctxt],
@@ -338,7 +378,9 @@ def run_schedule_loop(ctx: Context, sched: Schedule, inputs: Sequence[Ctxt],
 
     The JAX package runs the loop as one scanned program, cut into
     dispatches of `segment` cycles; here every cycle is a loop of eager
-    steps, so `segment` is accepted and changes nothing."""
+    steps, so `segment` is accepted and changes nothing. Every cycle runs
+    the one program run_schedule caches for the same key, so the schedule
+    must not be changed once it has run."""
     if cycles < 1 or segment < 0:
         raise ValueError("need cycles >= 1 and segment >= 0")
     Bsz, _, lvl = _check_inputs(ctx, sched, inputs)
@@ -346,13 +388,12 @@ def run_schedule_loop(ctx: Context, sched: Schedule, inputs: Sequence[Ctxt],
     for o, i in feedback:
         if not (0 <= o < n_out and 0 <= i < len(inputs)):
             raise ValueError(f"feedback pair {(o, i)} out of range")
-    prog = _Program(ctx, sched, Bsz, lvl)
-    in_rows = [prog.slot[w] for w in sched.inputs]
+    prog = _program(ctx, sched, Bsz, lvl)
     planes = ctx._inputs(*inputs)
     for _ in range(cycles):
         with span("cufhe.executor.run"):
-            regs = prog.run(ctx, prog.registers(ctx, in_rows, planes))
-            outs = prog.outputs(regs, sched)
+            regs = prog.run(ctx, prog.registers(planes))
+            outs = prog.outputs(regs)
             for o, i in feedback:
                 planes[i] = outs[o]
     return ctx._outputs(outs, lvl)

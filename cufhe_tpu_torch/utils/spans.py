@@ -8,7 +8,9 @@ a flag read, about half a microsecond on the host, where a bare
 record_function costs about 13. Spans are named cufhe.<layer>.<what>:
 
     cufhe.executor.run    run_schedule, each cycle of run_schedule_loop
-    cufhe.executor.plan   a _Program laid out: slots, plan, index uploads
+    cufhe.executor.plan   the program's lookup, on every call; on its key's
+                          first call also its build: slots, plan, index
+                          uploads
     cufhe.executor.step   one step: gather, gate program, scatter
     cufhe.gate            gate_lvl0/1 (ops.bootstrap): the two-input gates
     cufhe.gate.mux        mux_lvl0/1 (ops.bootstrap): mux and nmux, two
@@ -20,7 +22,9 @@ record_function costs about 13. Spans are named cufhe.<layer>.<what>:
 count(name, n) adds to one of the program's counters, which are always
 on; counts() is a snapshot of them, zero for a name never counted:
 
-    executor.plans        _Programs built
+    executor.plans        _Programs built (one a key: context, schedule,
+                          batch, level, step chunk)
+    executor.plan_hits    executor calls served by a _Program built before
     blind_rotate          rotations launched through the CUDA kernels
     blind_rotate.limbs4   of them with the exact four-limb key
     blind_rotate.limbs3   of them with the three-limb (pallas3) key

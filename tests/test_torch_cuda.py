@@ -570,6 +570,51 @@ def test_run_schedule_on_the_card_equals_the_cpu(chunk, cuda, monkeypatch):
         assert np.array_equal(decrypt_bits(o, sk), b)
 
 
+def test_aes_blocks_reuse_one_program(cuda):
+    """Two AES-128 blocks at batch 1 through one schedule at tfhepp_128bit:
+    one program build and one hit, both blocks FIPS-197 AES-128 of their
+    inputs, the hit's words equal to a new schedule's build on the same
+    inputs; under torch.profiler the hit copies nothing from the host to
+    the device before its first kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from cufhe_tpu_torch.runtime import netlists as NL
+    from cufhe_tpu_torch.runtime.bristol import compile_bristol
+    sk, ek = _keys(P.TFHEPP_128, 110)
+    ctx = Context(ek)
+    text = NL.aes128_bristol()
+    sched, _ = compile_bristol(text)
+    rng = np.random.default_rng(111)
+    blocks = [(rng.bytes(16), rng.bytes(16)) for _ in range(2)]
+    encs = [[encrypt_bits([b], sk, rng)
+             for b in NL.bits_of(pt) + NL.bits_of(key)] for pt, key in blocks]
+    before = counts()
+    first = run_schedule(ctx, sched, encs[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        second = run_schedule(ctx, sched, encs[1])
+        torch.cuda.synchronize()
+    ran = counts() - before
+    assert ran["executor.plans"] == 1 and ran["executor.plan_hits"] == 1
+    uncached = run_schedule(ctx, compile_bristol(text)[0], encs[1])
+    assert (counts() - before)["executor.plans"] == 2
+    for outs, (pt, key) in zip((first, second), blocks):
+        got = NL.bytes_of([int(decrypt_bits(o, sk)[0]) for o in outs])
+        assert got == NL.aes128_encrypt_block(pt, key)
+    assert len(second) == len(uncached) == 128
+    for o, w in zip(second, uncached):
+        assert torch.equal(o.data, w.data)
+    on_card = sorted((ev for ev in prof.events()
+                      if ev.device_type == DeviceType.CUDA),
+                     key=lambda ev: ev.time_range.start)
+    kernels = [i for i, ev in enumerate(on_card)
+               if not ev.name.startswith(("Memcpy", "Memset"))]
+    assert kernels, "the profiler recorded no kernel on the card"
+    early = [ev.name for ev in on_card[:kernels[0]] if "HtoD" in ev.name]
+    assert not early, f"host-to-device copies before the first kernel: {early}"
+
+
 def test_gates_chain_across_streams_without_synchronise(cuda):
     """A chain hopping between two Streams and the default stream, with no
     explicit synchronise, equals the same chain on the default stream; the

@@ -2,7 +2,8 @@
 profiler records; under torch.profiler the executor, the gate program, the
 key switch and the blind rotation give the tree of cufhe.* spans the
 benchmark reads, one span per planned step and per rotation; the
-executor.plans counter counts every _Program built."""
+executor.plans counter counts every _Program built and executor.plan_hits
+every call served by one built before."""
 import numpy as np
 import pytest
 import torch
@@ -151,15 +152,20 @@ def test_run_schedule_loop_spans_a_run_per_cycle(tiny):
 
 
 def test_executor_plans_counts_every_program(tiny):
+    """One program a key: three run_schedule calls of one schedule are one
+    build and two hits, and run_schedule_loop on the same key is a hit."""
     ctx, inputs = tiny
     sched, _ = compile_bristol(ADDER2)
     cts = inputs(sched)
-    before = spans.counts()["executor.plans"]
+    before = spans.counts()
     for i in range(1, 4):
         run_schedule(ctx, sched, cts)
-        assert spans.counts()["executor.plans"] == before + i
+        now = spans.counts() - before
+        assert now["executor.plans"] == 1
+        assert now["executor.plan_hits"] == i - 1
     run_schedule_loop(ctx, sched, cts, 2, [(0, 0)])
-    assert spans.counts()["executor.plans"] == before + 4
+    now = spans.counts() - before
+    assert now["executor.plans"] == 1 and now["executor.plan_hits"] == 3
 
 
 def test_counts_is_a_snapshot():
