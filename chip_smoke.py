@@ -121,12 +121,13 @@ Phases, each raising on failure:
      rotation_plan takes it: the batches too small to fill the card) at
      every published preset and 1, 48, 160 and 480 rows, equal as uint32
      to the plain version and to the loop of 2 n0 launches on 20 fresh
-     inputs each, with one persistent launch and no rotdec launch a
-     rotation; one AES-128 block at batch 1 (the aes128_b1 cell's shape)
-     right, all 257 rotations persistent; the loop and the persistent
-     kernel timed a step at tfhepp_128bit from 1 to 2048 rows
+     inputs each, with one persistent launch of one row-tile group a
+     64-row tile and no rotdec launch a rotation; one AES-128 block at
+     batch 1 (the aes128_b1 cell's shape) right, all 257 rotations
+     persistent, 833 row-tile groups; the loop and the persistent kernel
+     timed a step at tfhepp_128bit from 1 to 2048 rows
      (benchmarks.rotation.measure_paths). Phase 5's NAND chain at batch
-     4096 takes the loop: no persistent launch;
+     4096 takes the loop: no persistent launch, no group;
  22. the MUX at cggi19 (Karatsuba depth 1, the mux_b4096.cggi19 cell's
      path and width): Context.mux and nmux at batch 4096 on keys and inputs
      that fhebench/reference made from a seed, equal as uint32 to
@@ -185,6 +186,9 @@ PERSISTENT_INSTANCES = tuple(
 PERSIST_ROWS = (1, 48, 160, 480)
 PERSIST_REPS = 20
 AES_LEVELS = 257
+#: the 64-row tiles of those levels at batch 1: the persistent kernel's
+#: row-tile groups an AES block
+AES_TILES = 833
 PATHS_ROWS = (1, 48, 160, 480, 2048)
 PROBE_SOURCE = "cufhe_tpu_torch/csrc/mxu_peak.cu"
 WGMMA_SOURCE = "cufhe_tpu_torch/csrc/mxu_peak_wgmma.cu"
@@ -1427,6 +1431,8 @@ def phase_persistent(ctx, sk, tag: str) -> dict:
                                               grid=0))
                 err = u32_max_abs_err(got, want)
                 if (err or launched["blind_rotate.persistent"] != 1
+                        or launched["blind_rotate.persistent_groups"]
+                        != BR.persistent_groups(rows, grid)
                         or launched["rotdec"]):
                     raise AssertionError(
                         f"persistent rotation at {name}, {rows} rows, "
@@ -1436,7 +1442,8 @@ def phase_persistent(ctx, sk, tag: str) -> dict:
                 checked += 1
         log(f"persistent rotation at {name}, {', '.join(map(str, PERSIST_ROWS))}"
             f" rows: equal as uint32 to the plain version and to the loop on "
-            f"{PERSIST_REPS} inputs each, one persistent launch and no rotdec "
+            f"{PERSIST_REPS} inputs each, one persistent launch of one "
+            f"row-tile group a 64-row tile and no rotdec "
             f"launch a rotation")
         del key
 
@@ -1445,11 +1452,13 @@ def phase_persistent(ctx, sk, tag: str) -> dict:
     launched = counts() - before
     log(f"AES-128 at batch 1 through run_schedule, {ctx.params.name}: block "
         f"errors {rec['block_errors']}, {rec['rotation_launches']} rotations, "
-        f"{launched['blind_rotate.persistent']} persistent launches, "
+        f"{launched['blind_rotate.persistent']} persistent launches of "
+        f"{launched['blind_rotate.persistent_groups']} row-tile groups, "
         f"{launched['rotdec']} rotdec launches; {rec['seconds'] * 1e3:.1f} ms "
         f"a block {tag}")
     if (rec["block_errors"] or rec["rotation_launches"] != AES_LEVELS
             or launched["blind_rotate.persistent"] != AES_LEVELS
+            or launched["blind_rotate.persistent_groups"] != AES_TILES
             or launched["rotdec"]):
         raise AssertionError("AES-128 at batch 1: want every rotation on the "
                              "persistent kernel")
@@ -1466,6 +1475,7 @@ def phase_persistent(ctx, sk, tag: str) -> dict:
             "instruction": "wgmma", "source": SOURCE, "replaces": REPLACES,
             "checked": checked, "max_abs_err": max_err,
             "launches_aes": launched["blind_rotate.persistent"],
+            "groups_aes": launched["blind_rotate.persistent_groups"],
             "aes_block_ms": rec["seconds"] * 1e3,
             "us_a_step": {r["rows"]: [r["loop_us_a_step"],
                                       r["persistent_us_a_step"],
@@ -1938,7 +1948,8 @@ def main() -> int:
         f"{[round(t * 1e3, 1) for t in times]} ms) {tag}")
     if (errors or launches != gates or ks_launches != gates
             or rotdec_launches != gates * T.TFHEPP_128.n0
-            or launched["blind_rotate.persistent"]):
+            or launched["blind_rotate.persistent"]
+            or launched["blind_rotate.persistent_groups"]):
         raise AssertionError("main path failed its checks")
     p5 = (bits0, bits1, a, b, first, out, gate_rate)
 

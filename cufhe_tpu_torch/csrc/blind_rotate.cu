@@ -170,26 +170,38 @@
 // than their work: each pays the launch, its blocks' prologue and the
 // ring's first fill, and rotdec a launch of its own; an AES-128 block at
 // batch 1 is 257 rotations of 2 x 636 launches. So one cooperative launch
-// of at most one block an SM walks all n0 steps, each in two phases that
-// grid-wide barriers separate (grid_sync: a counter the wrapper zeroes,
-// arrivals released and polled with acquire at gpu scope):
+// of at most one block an SM walks all n0 steps.
+// The batch's 64-row tiles are independent: the acc and dec rows of tile y
+// are read and written only by its rows' rotdec and by the product items
+// of batch tile y; the key, which all share, is read-only. So the grid's G
+// blocks are cut into n = min(ny, G) row-tile groups (tile_group): group g
+// is blocks floor(gG/n) .. floor((g+1)G/n) - 1, sizes one apart, and owns
+// tiles floor(g ny/n) .. floor((g+1) ny/n) - 1: one tile each on every
+// grid rotation_plan gives, where n = ny. Each group walks the n0 steps on its own,
+// each step in two phases that barriers of the group alone separate
+// (group_sync: the group's counter, kArrivalStride words from the next, in
+// a buffer the wrapper zeroes, arrivals released and polled with acquire
+// at gpu scope). No group waits for another, so no cycle of waits can
+// form; inside a group the walk is the whole grid's of a one-tile batch.
 //  1. rotate-and-decompose: the two consumer warpgroups (256 threads, as
 //     rotdec_kernel's block) run rotdec_rows, rotdec_kernel's device code,
-//     over the step's blocks of rows strided by gridDim.x, staging rows
-//     where the quarters live in phase 2; acc arrives by cp.async.cg,
-//     through L2, never a stale L1. Meanwhile the producer prefetches the
-//     block's share of the step's key into L2. dec's generic stores are
-//     fenced (fence.proxy.async) before the barrier: phase 2 reads dec by
-//     TMA, the async proxy.
-//  2. the product: the step's output tiles x batch tiles x stages, cut
-//     into gridDim.x equal shares of stages (for_share, as stream-K
-//     cuts a GEMM: every block does the same work, where extprod_plan's
-//     ranges leave some blocks an item more than others); a share's part
-//     of a tile is one item, a range of its stages, run by ext_produce and
-//     ext_consume, the one item of an extprod_kernel block. The ring's
-//     slots and parities carry on from item to item and step to step, and
-//     each item adds its partial sums to acc with red.global.add, as
-//     there: adds mod 2^32 are exact in any order and grouping.
+//     over the blocks of the group's rows (pointers moved to its first
+//     row) strided by the group's size, staging rows where the quarters
+//     live in phase 2; acc arrives by cp.async.cg, through L2, never a
+//     stale L1. Meanwhile the producer prefetches the block's share of the
+//     step's key into L2. dec's generic stores are fenced
+//     (fence.proxy.async) before the barrier: phase 2 reads dec by TMA,
+//     the async proxy.
+//  2. the product: the group's output tiles x batch tiles x stages, cut
+//     into equal shares of stages, one a block of the group (for_share, as
+//     stream-K cuts a GEMM: every block does the same work, where
+//     extprod_plan's ranges leave some blocks an item more than others); a
+//     share's part of a tile is one item, a range of its stages, run by
+//     ext_produce and ext_consume, the one item of an extprod_kernel
+//     block. The ring's slots and parities carry on from item to item and
+//     step to step, and each item adds its partial sums to acc with
+//     red.global.add, as there: adds mod 2^32 are exact in any order and
+//     grouping.
 // The result is the same uint32 words as the loop's: the same digits,
 // leaves, limb sums and adds mod 2^32. L and ND unroll rotdec's digit
 // loops for the two published sets it runs on (tfhepp_128bit and
@@ -236,6 +248,9 @@ constexpr int kMaxSmem = 232448;                   // shared memory of a block
 // the persistent kernel's shares end at a leaf's end within this many
 // stages of their even cut (share_cut)
 constexpr int kShareSnap = 2;
+// words from one row-tile group's barrier counter to the next: a 128-byte
+// line each (group_sync)
+constexpr int kArrivalStride = 32;
 
 __host__ __device__ constexpr int pow3(int d) {
   return d == 0 ? 1 : 3 * pow3(d - 1);
@@ -652,36 +667,60 @@ __device__ __forceinline__ ExtItem ext_item(const ExtStep& st, int x, int y,
   return it;
 }
 
-// Where for_share cuts the step's units (tile-major stages) between blocks
-// b - 1 and b: at b/G of them, moved to the nearest end of a leaf (S
-// stages) within kShareSnap stages, as a range that cuts a leaf folds it
-// twice (about two stages each, as timed on an H100: PERF.md).
-// Non-decreasing in b.
-__device__ __forceinline__ int share_cut(int units, int S, int b) {
-  const int u = static_cast<int>(static_cast<long long>(units) * b /
-                                 gridDim.x);
+// Where a row-tile group's units (tile-major stages) are cut between its
+// blocks b - 1 and b of `size`: at b/size of them, moved to the nearest end
+// of a leaf (S stages) within kShareSnap stages, as a range that cuts a
+// leaf folds it twice (about two stages each, as timed on an H100:
+// PERF.md). Non-decreasing in b.
+__device__ __forceinline__ int share_cut(int units, int S, int b, int size) {
+  const int u = static_cast<int>(static_cast<long long>(units) * b / size);
   const int r = u % S;
   return r <= kShareSnap ? u - r : S - r <= kShareSnap ? u + S - r : u;
 }
 
+// This block's row-tile group in the persistent kernel (the file's note):
+// group g of n = min(ny, gridDim.x), its blocks first .. first + size - 1
+// (rank: this block's place among them) and its row tiles [y0, y1). The
+// same in every step: one thread writes it to shared memory once, and both
+// roles read it there where they use it: the consumers' product sums
+// fill their registers, and ptxas spilled them with the group held in
+// registers besides.
+struct TileGroup {
+  int g, rank, size, y0, y1;
+};
+
+__device__ __forceinline__ TileGroup tile_group(int ny) {
+  const int G = gridDim.x, b = blockIdx.x;
+  const int n = min(ny, G);
+  TileGroup tg;
+  tg.g = ((b + 1) * n - 1) / G;
+  const int first = tg.g * G / n;
+  tg.rank = b - first;
+  tg.size = (tg.g + 1) * G / n - first;
+  tg.y0 = tg.g * ny / n;
+  tg.y1 = (tg.g + 1) * ny / n;
+  return tg;
+}
+
 // The items of a step's product that this block takes in the persistent
-// kernel: the step's nx * ny tiles x T stages, tile-major, cut into
-// gridDim.x shares of stages, equal but for share_cut's snap; the share's
-// part of each tile it meets is one item, a range of that tile's stages
-// (it may cut a leaf: the consumer folds at every leaf's end and at the
-// range's). fn(item) for each, in order. Every block does about the same
-// work, where extprod_plan's ranges leave some blocks one more item than
-// others.
+// kernel: its group's nx * (y1 - y0) tiles x T stages, tile-major, cut
+// into one share of stages a block of the group, equal but for share_cut's
+// snap; the share's part of each tile it meets is one item, a range of
+// that tile's stages (it may cut a leaf: the consumer folds at every
+// leaf's end and at the range's). fn(item) for each, in order. Every block
+// of a group does about the same work, where extprod_plan's ranges leave
+// some blocks one more item than others.
 template <int SEG, typename Fn>
-__device__ __forceinline__ void for_share(const ExtStep& st, int nx, int ny,
-                                          Fn&& fn) {
-  const int units = nx * ny * st.T;
-  const int u1 = share_cut(units, st.S, blockIdx.x + 1);
-  for (int u = share_cut(units, st.S, blockIdx.x); u < u1;) {
+__device__ __forceinline__ void for_share(const ExtStep& st, int nx,
+                                          const TileGroup& tg, Fn&& fn) {
+  const int y0 = tg.y0;
+  const int units = nx * (tg.y1 - y0) * st.T;
+  const int u1 = share_cut(units, st.S, tg.rank + 1, tg.size);
+  for (int u = share_cut(units, st.S, tg.rank, tg.size); u < u1;) {
     const int tile = u / st.T;
     const int t0 = tile * st.T;
     const int s1 = min(st.T, u1 - t0);
-    fn(ext_item<SEG>(st, tile % nx, tile / nx, u - t0, s1));
+    fn(ext_item<SEG>(st, tile % nx, y0 + tile / nx, u - t0, s1));
     u = t0 + s1;
   }
 }
@@ -998,15 +1037,16 @@ extprod_kernel(const __grid_constant__ CUtensorMap tma_dec,
   }
 }
 
-// Every block of a cooperative grid waits here until all have arrived
-// `target` times in all (gridDim.x a barrier): the block's threads meet,
-// thread 0 adds its arrival with release and polls the count with acquire,
-// both at gpu scope, and the block meets again. What any thread of any
-// block wrote before the barrier is visible to every thread after it. A
-// grid whose blocks cannot all meet (a fault: the launch is cooperative)
-// traps after 2^26 polls, tens of seconds, rather than hang the card.
-__device__ __forceinline__ void grid_sync(unsigned int* count,
-                                          unsigned int target) {
+// The blocks of a row-tile group wait here until all `size` have arrived
+// `target` times in all (size a barrier) on the group's counter: the
+// block's threads meet, thread 0 adds its arrival with release and polls
+// the count with acquire, both at gpu scope, and the block meets again.
+// What any thread of the group wrote before the barrier is visible to every
+// thread of it after. A group whose blocks cannot all meet (a fault: the
+// launch is cooperative) traps after 2^26 polls, tens of seconds, rather
+// than hang the card.
+__device__ __forceinline__ void group_sync(unsigned int* count,
+                                           unsigned int target) {
   __syncthreads();
   if (threadIdx.x == 0) {
     asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n"
@@ -1027,20 +1067,20 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.global;\n" ::: "memory");
 }
 
-// The persistent kernel's arguments beside its pointers: rotdec's, its
-// blocks a step, the product's shape, the steps, and the key's bytes a
-// step.
+// The persistent kernel's arguments beside its pointers: rotdec's, the
+// product's shape, the steps, and the key's bytes a step.
 struct PersistArgs {
   RotArgs rot;
-  int rot_blocks;
   int B, N, kp1, I, n0, key_step;
 };
 
-// The whole rotation in one cooperative launch: n0 steps, each rotdec's
-// blocks strided by gridDim.x, then the block's share of the product
-// (for_share), separated by grid_sync (the file's note).
-// arrivals: a zeroed counter, 2 n0 gridDim.x arrivals in all. acc, dec,
-// tma_dec and the key's layout are cufhe_blind_rotate's; abar is [n0, B].
+// The whole rotation in one cooperative launch: each row-tile group
+// (tile_group) walks the n0 steps, each its rotdec blocks strided by the
+// group's size, then the block's share of the group's product (for_share),
+// separated by group_sync (the file's note).
+// arrivals: zeroed counters, kArrivalStride words apart, one a group, 2 n0
+// arrivals of each of its blocks in all. acc, dec, tma_dec and the key's
+// layout are cufhe_blind_rotate's; abar is [n0, B].
 template <int NL, int SEG, int D, int L, int ND>
 __global__ void __launch_bounds__(kExtThreads, 1)
 persistent_extprod_kernel(const __grid_constant__ CUtensorMap tma_dec,
@@ -1063,7 +1103,9 @@ persistent_extprod_kernel(const __grid_constant__ CUtensorMap tma_dec,
   const ExtStep st = ext_step<D>(a.B, a.N, a.kp1, a.I);
   const int nx = (st.kp1 * st.LN + kOutTile - 1) / kOutTile;
   const int ny = (st.B + kRowTile - 1) / kRowTile;
-  ring_init(full0, empty0);
+  __shared__ TileGroup tg;
+  if (tid == 0) tg = tile_group(ny);
+  ring_init(full0, empty0);                        // the block meets
 
   if (tid / 128 == kConsumers) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
@@ -1082,34 +1124,43 @@ persistent_extprod_kernel(const __grid_constant__ CUtensorMap tma_dec,
                               min(share, a.key_step - from)))
                        : "memory");
       }
-      grid_sync(arrivals, gridDim.x * (2 * i + 1));
+      group_sync(arrivals + tg.g * kArrivalStride, tg.size * (2 * i + 1));
       if (issues) {
         fence_proxy_async();                       // dec, now by TMA
-        for_share<SEG>(st, nx, ny, [&](const ExtItem& it) {
+        for_share<SEG>(st, nx, tg, [&](const ExtItem& it) {
           ext_produce<NL, SEG, D>(&tma_dec, bk_i, base, full0, empty0,
                                   tid & 31, st, it, r);
         });
       }
-      grid_sync(arrivals, gridDim.x * (2 * i + 2));
+      group_sync(arrivals + tg.g * kArrivalStride, tg.size * (2 * i + 2));
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
     Ring r{0, 0};
     for (int i = 0; i < a.n0; ++i) {
-      for (int blk = blockIdx.x; blk < a.rot_blocks; blk += gridDim.x) {
-        rotdec_rows<L, ND, D>(acc, abar + static_cast<size_t>(i) * a.B, dec,
-                              a.rot, blk, tid,
-                              reinterpret_cast<uint32_t*>(spare));
+      // rotdec on the group's batch rows alone, from b0 on: the pointers
+      // moved to b0, in blocks of kRotThreads >> tpr_log rows (b, j)
+      const int b0 = tg.y0 * kRowTile;
+      RotArgs ra = a.rot;
+      ra.nrows = (min(st.B, tg.y1 * kRowTile) - b0) * st.kp1;
+      const int rows = kRotThreads >> ra.tpr_log;
+      for (int blk = tg.rank; blk < (ra.nrows + rows - 1) / rows;
+           blk += tg.size) {
+        rotdec_rows<L, ND, D>(
+            acc + static_cast<size_t>(b0) * st.kp1 * st.N,
+            abar + static_cast<size_t>(i) * a.B + b0,
+            dec + static_cast<size_t>(b0) * E::kLeaves * st.KB, ra, blk, tid,
+            reinterpret_cast<uint32_t*>(spare));
         rot_sync();                  // the rows are read: the next may land
       }
       fence_proxy_async();           // dec's stores before the TMA reads
-      grid_sync(arrivals, gridDim.x * (2 * i + 1));
-      for_share<SEG>(st, nx, ny, [&](const ExtItem& it) {
+      group_sync(arrivals + tg.g * kArrivalStride, tg.size * (2 * i + 1));
+      for_share<SEG>(st, nx, tg, [&](const ExtItem& it) {
         ext_consume<NL, SEG, D>(acc, ring, base, full0, empty0,
                                 reinterpret_cast<uint4*>(spare), tid, st, it,
                                 r);
       });
-      grid_sync(arrivals, gridDim.x * (2 * i + 2));
+      group_sync(arrivals + tg.g * kArrivalStride, tg.size * (2 * i + 2));
     }
   }
 }
@@ -1156,8 +1207,8 @@ PersistFn persistent_instance(int l, int nd) {
 // The n0 steps of one rotation through extprod_kernel<NL, SEG, D>, its
 // contraction cut into `split` ranges: 2 n0 launches of rotdec_kernel and
 // extprod_kernel where grid is 0, else one cooperative launch of grid
-// blocks of persistent_extprod_kernel, which counts its barriers in
-// arrivals (zeroed).
+// blocks of persistent_extprod_kernel, whose row-tile groups count their
+// barriers in arrivals (zeroed).
 template <int NL, int SEG, int D>
 cudaError_t rotate(uint32_t* acc, const int32_t* abar, const int8_t* key,
                    int8_t* dec, int B, int n0, int N, int nbit, int kp1,
@@ -1179,12 +1230,13 @@ cudaError_t rotate(uint32_t* acc, const int32_t* abar, const int8_t* key,
       static_cast<size_t>(I) * kp1 * NL * E::kLeaves * 2 * LN;
   if (grid > 0) {
     if (key_step > INT_MAX) return cudaErrorInvalidValue;
-    // the ring, its barriers, then the quarters or rotdec's rows
+    // the ring, its barriers, then the quarters or rotdec's rows; the
+    // row-tile group in static shared memory beside them
     const int smem = E::kRing + 16 * kStages +
                      std::max(E::kQBytes, plan.smem) + 1024;
-    if (smem > kMaxSmem) return cudaErrorInvalidValue;
-    const PersistArgs pa{ra, rot_blocks, B, N, kp1, I, n0,
-                         static_cast<int>(key_step)};
+    if (smem + static_cast<int>(sizeof(TileGroup)) > kMaxSmem)
+      return cudaErrorInvalidValue;
+    const PersistArgs pa{ra, B, N, kp1, I, n0, static_cast<int>(key_step)};
     return persistent_instance<NL, SEG, D>(l, nd)(
         map, acc, abar, key, dec, arrivals, pa, grid, smem, s);
   }
@@ -1239,8 +1291,9 @@ bool depth_ok(int depth, int nbit, int Bgbit, int dbits, int nlimbs) {
 // 3^D * ceil(I*LN / 128), is the number of contraction ranges,
 // ops/blind_rotate.py:extprod_plan's choice. grid 0 enqueues the 2*n0
 // kernels of the loop on `stream`; grid > 0 one cooperative launch of grid
-// blocks (at most one an SM) of the persistent kernel, whose barriers
-// count in `arrivals`, a zeroed 4-byte counter
+// blocks (at most one an SM) of the persistent kernel, whose row-tile
+// groups count their barriers in `arrivals`: min(ceil(B / 64), grid)
+// zeroed 4-byte counters, kArrivalStride words apart
 // (ops/blind_rotate.py:rotation_plan chooses). Returns the first launch
 // error as a cudaError_t value (0 on success); it does not wait.
 // Another nlimbs, a three-limb key at N < 128, a depth depth_ok refuses,

@@ -74,6 +74,9 @@ EXTPROD_BLOCK_OVERHEAD = 2
 EXTPROD_LEAF_BLOCK_OVERHEAD = 6
 #: the deepest Karatsuba tree (csrc/blind_rotate.cu: kMaxKar)
 KAR_MAX_DEPTH = 2
+#: int32 words from one row-tile group's barrier counter to the next in
+#: the persistent kernel (csrc/blind_rotate.cu: kArrivalStride)
+ARRIVAL_STRIDE = 32
 
 
 def kar_depth(params: GateParams, nlimbs: int = NLIMBS) -> int:
@@ -183,15 +186,24 @@ def rotation_plan(B: int, N: int, kp1: int, I: int, sms: int = H100_SMS,
     kernel runs exactly where the split is > 1, where the step's output
     tiles x batch tiles leave SMs idle, and saves the n0 steps' launches,
     block prologues and rotdec launches. Its grid is one block an SM, or
-    one a stage of the step's work where that is fewer: the blocks share
-    the step's tiles x stages equally (csrc/blind_rotate.cu: for_share).
-    Where the tiles fill the card (both NAND cells' 4096 rows) the loop
-    runs. The choice follows from the shape alone."""
+    one a stage of the step's work where that is fewer, cut into
+    persistent_groups row-tile groups whose blocks share their tiles x
+    stages equally (csrc/blind_rotate.cu: tile_group, for_share). Where
+    the tiles fill the card (both NAND cells' 4096 rows) the loop runs.
+    The choice follows from the shape alone."""
     split = extprod_plan(B, N, kp1, I, sms, depth)
     if split == 1:
         return split, 0
     stages = extprod_stages(N, I, depth)
     return split, min(extprod_items(B, N, kp1, depth, stages), sms)
+
+
+def persistent_groups(B: int, grid: int) -> int:
+    """The row-tile groups of a persistent rotation of B rows on `grid`
+    blocks: one a 64-row batch tile, at most one a block. Each walks the
+    n0 steps behind barriers of its own blocks alone
+    (csrc/blind_rotate.cu: tile_group)."""
+    return min(cdiv(B, EXTPROD_ROW_TILE), grid)
 
 
 def check_key_limbs(nlimbs: int, params: GateParams) -> None:
@@ -406,7 +418,8 @@ def blind_rotate_cuda(acc: torch.Tensor, abar: torch.Tensor,
     kernels cannot be built or launched. The product's contraction split
     and the launch (the loop, or one persistent kernel) are
     rotation_plan's for the card's SM count; each persistent rotation
-    counts once on spans.counts()["blind_rotate.persistent"], each loop n0
+    counts once on spans.counts()["blind_rotate.persistent"] and its
+    row-tile groups on "blind_rotate.persistent_groups", each loop n0
     times on "rotdec".
     """
     return _blind_rotate_cuda(acc, abar, bk_ext, params,
@@ -434,9 +447,11 @@ def _blind_rotate_cuda(acc: torch.Tensor, abar: torch.Tensor,
     out = acc.clone()
     dec = torch.empty((B, 3 ** depth * I * (N >> depth)), dtype=torch.int8,
                       device=acc.device)
-    # the persistent kernel's barrier counter, zeroed for each rotation
-    arrivals = (torch.zeros(1, dtype=torch.int32, device=acc.device)
-                if grid else None)
+    # the persistent kernel's barrier counters, one a row-tile group,
+    # zeroed for each rotation
+    groups = persistent_groups(B, grid) if grid else 0
+    arrivals = (torch.zeros(groups * ARRIVAL_STRIDE, dtype=torch.int32,
+                            device=acc.device) if grid else None)
     call("cufhe_blind_rotate", acc.device, out.data_ptr(), abar.data_ptr(),
          bk_ext.data_ptr(), dec.data_ptr(), B, n0, N, nbit, k, l, Bgbit, nd,
          dbits, nlimbs, depth, off, split, grid,
@@ -446,6 +461,7 @@ def _blind_rotate_cuda(acc: torch.Tensor, abar: torch.Tensor,
     count(f"blind_rotate.kar{depth}")
     if grid:
         count("blind_rotate.persistent")
+        count("blind_rotate.persistent_groups", groups)
     else:
         count("rotdec", n0)
     return out

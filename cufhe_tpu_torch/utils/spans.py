@@ -31,8 +31,15 @@ on; counts() is a snapshot of them, zero for a name never counted:
     blind_rotate.kar0/1/2 of them at each Karatsuba depth of the product
                           (2 at tfhepp_128bit, 1 at cggi19, 0 at concrete
                           and pallas3)
+    blind_rotate.persistent
+                          of them in one persistent_extprod_kernel launch
+                          (where the batch leaves SMs idle: every AES level)
+    blind_rotate.persistent_groups
+                          the row-tile groups of those launches, summed
+                          (one a 64-row batch tile: 833 an AES block at
+                          batch 1, 0 a 4096-row NAND call)
     rotdec                rotate-and-decompose kernel launches (n0 per
-                          rotation, one per rotdec_cuda call)
+                          loop rotation, one per rotdec_cuda call)
     mux                   mux programs run (mux_lvl0/1: one a Context.mux
                           or nmux call, one a shard under a mesh)
     mux.rows              rows they muxed

@@ -153,8 +153,9 @@ def test_cuda_blind_rotate_counts_rotdec_launches(cuda):
     """On the loop (a batch that fills the card: 64 rows an SM at TINY's
     one output tile) cufhe_blind_rotate launches the rotate-and-decompose
     kernel once per step: n0 on rotdec_cuda's count per rotation, 0 on
-    blind_rotate.persistent. At 3 rows the one persistent launch does the
-    same steps: 1 on blind_rotate.persistent, 0 on rotdec."""
+    blind_rotate.persistent and its groups. At 3 rows the one persistent
+    launch does the same steps: 1 on blind_rotate.persistent and on
+    blind_rotate.persistent_groups (one 64-row tile), 0 on rotdec."""
     params = P.TINY
     keys = _device_keys(params, 92)
     rows = BR.EXTPROD_ROW_TILE * _build.sms(cuda)
@@ -166,6 +167,8 @@ def test_cuda_blind_rotate_counts_rotdec_launches(cuda):
         assert after["rotdec"] - before["rotdec"] == rotdec
         assert after["blind_rotate.persistent"] - \
             before["blind_rotate.persistent"] == persistent
+        assert after["blind_rotate.persistent_groups"] - \
+            before["blind_rotate.persistent_groups"] == persistent
 
 
 def _wide(nbit, l=1, Bgbit=2):
@@ -420,14 +423,19 @@ def test_cuda_kernel_matches_ref_full_presets(params, rows, cuda):
 @pytest.mark.parametrize("nlimbs", [4, 3])
 def test_cuda_kernel_matches_ref_main_shape(nlimbs, cuda):
     """tfhepp_128bit at the main path's 4096 rows (one contraction
-    range), both key precisions."""
+    range), both key precisions: the rotation of a 4096-row NAND call, on
+    the loop, with no persistent launch and no row-tile group."""
     params = P.TFHEPP_128
     bk_ext = _random_bk_ext(params, 140, cuda, nlimbs)
     acc, abar = _random_inputs(params, 4096, 141, cuda)
     lp = params.lvl1
     assert BR.extprod_plan(4096, lp.n, lp.k + 1, bk_ext.shape[1],
                            depth=BR.kar_depth(params, nlimbs)) == 1
+    before = counts()
     got = BR.blind_rotate_cuda(acc, abar, bk_ext, params)
+    ran = counts() - before
+    assert ran["blind_rotate.persistent"] == 0
+    assert ran["blind_rotate.persistent_groups"] == 0
     assert torch.equal(got, BR.blind_rotate_ref(acc, abar, bk_ext, params))
 
 
@@ -462,10 +470,13 @@ def test_cuda_kernel_splits_the_contraction_at_one_row(params, cuda):
 #: every set the port runs, tiny and published, for the persistent kernel
 PERSISTENT_SETS = [P.PALLAS_TINY, P.PALLAS_TINY_K2, P.PALLAS_BG10, P.TINY,
                    P.TINY_K2, P.PALLAS_KAR, P.PALLAS_BG10_KAR, *FULL_PRESETS]
-#: the rows of each case: AES's narrow levels and the batch tiles' edges,
-#: then the last row count that takes the persistent kernel on this card
-#: ("edge") and the first that takes the loop ("edge+1")
-PERSISTENT_ROWS = [1, 48, 63, 64, 65, 160, 480, "edge", "edge+1"]
+#: the rows of each case: AES's narrow levels and the batch tiles' edges
+#: (each side of 64, 128 and 192), row-tile groups of uneven sizes (5, 7
+#: and 8 tiles on 132 blocks: 300, 420 and 480 rows), then the last row
+#: count that takes the persistent kernel on this card ("edge") and the
+#: first that takes the loop ("edge+1")
+PERSISTENT_ROWS = [1, 48, 63, 64, 65, 128, 129, 160, 192, 193, 300, 420,
+                   480, "edge", "edge+1"]
 #: fresh inputs a case: a barrier or proxy-fence race shows on some
 PERSISTENT_REPS = 20
 
@@ -498,7 +509,9 @@ def test_cuda_persistent_rotation_matches_ref(params, rows, cuda):
     would show; the first also against the plain version (at the
     published sets, whose plain rotation takes seconds on the card, at 1
     row and at the edge). A persistent rotation adds 1 to
-    blind_rotate.persistent and 0 to rotdec; a loop n0 to rotdec."""
+    blind_rotate.persistent, its row-tile groups (persistent_groups) to
+    blind_rotate.persistent_groups and 0 to rotdec; a loop n0 to
+    rotdec."""
     from cufhe_tpu_torch.benchmarks.rotation import cases
     lp = params.lvl1
     sms = _build.sms(cuda)
@@ -516,6 +529,9 @@ def test_cuda_persistent_rotation_matches_ref(params, rows, cuda):
             after = counts()
             assert after["blind_rotate.persistent"] - \
                 before["blind_rotate.persistent"] == (1 if grid else 0)
+            assert after["blind_rotate.persistent_groups"] - \
+                before["blind_rotate.persistent_groups"] == \
+                (BR.persistent_groups(B, grid) if grid else 0)
             assert after["rotdec"] - before["rotdec"] == \
                 (0 if grid else params.n0)
             other = BR._blind_rotate_cuda(acc, abar, bk_ext, params, depth,
@@ -574,8 +590,9 @@ def test_aes_blocks_reuse_one_program(cuda):
     """Two AES-128 blocks at batch 1 through one schedule at tfhepp_128bit:
     one program build and one hit, both blocks FIPS-197 AES-128 of their
     inputs, the hit's words equal to a new schedule's build on the same
-    inputs; under torch.profiler the hit copies nothing from the host to
-    the device before its first kernel."""
+    inputs; each block's 257 rotations persistent, in 833 row-tile groups;
+    under torch.profiler the hit copies nothing from the host to the
+    device before its first kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from cufhe_tpu_torch.runtime import netlists as NL
@@ -597,6 +614,8 @@ def test_aes_blocks_reuse_one_program(cuda):
         torch.cuda.synchronize()
     ran = counts() - before
     assert ran["executor.plans"] == 1 and ran["executor.plan_hits"] == 1
+    assert ran["blind_rotate.persistent"] == 2 * 257
+    assert ran["blind_rotate.persistent_groups"] == 2 * 833
     uncached = run_schedule(ctx, compile_bristol(text)[0], encs[1])
     assert (counts() - before)["executor.plans"] == 2
     for outs, (pt, key) in zip((first, second), blocks):

@@ -7,9 +7,10 @@ exactly once and keep the card's SMs busy; at Karatsuba depth d > 0 every
 (output tile, batch tile, leaf, stage of the leaf), with each output
 quarter summing each of the leaves that feed it once. rotation_plan takes
 the persistent kernel exactly where that split is > 1, on a grid of at most
-one block an SM; its blocks' shares of a step (stream-K cuts snapped to a
-leaf's end) and its rotdec walk cover every stage and row once, modelled
-from the source's formulas. The fragment map is a
+one block an SM; its row-tile groups of blocks, their shares of a step
+(stream-K cuts snapped to a leaf's end) and their rotdec walk cover every
+stage and row once, each in its own tile's group, modelled from the
+source's formulas. The fragment map is a
 NumPy model of what csrc/blind_rotate.cu's extprod_kernel does: the
 producer's key windows in shared memory (their order, offsets and bytes),
 then each consumer lane's four A registers per limb and 32-byte k-step,
@@ -333,100 +334,195 @@ def rotdec_rows_a_block(N: int, depth: int) -> int:
 
 
 def test_persistent_walk_formulas_are_the_kernels():
-    """The walk modelled below is the source's: the step's tiles x stages,
-    tile-major, cut into gridDim.x equal shares of stages, each cut moved
-    to a leaf's end within kShareSnap stages (for_share, share_cut),
-    rotdec's blocks strided by gridDim.x, two grid_sync a step, each
-    waiting for gridDim.x more arrivals."""
+    """The walk modelled below is the source's: the grid cut into
+    min(ny, G) row-tile groups, sizes one apart, each owning a run of row
+    tiles (tile_group, written once to shared memory); each block's share
+    of its group's tiles x stages, tile-major, cut equally between the
+    group's blocks, each cut moved to a leaf's end within kShareSnap
+    stages (for_share, share_cut) and walked item by item; rotdec's blocks over the group's rows alone, its pointers
+    moved to the group's first row, strided by the group's size; two
+    group_sync a step on the group's counter, each waiting for the group's
+    size more arrivals."""
     src = re.sub(r"\s+", " ", SOURCE.read_text())
     for text in (
             "const int nx = (st.kp1 * st.LN + kOutTile - 1) / kOutTile;",
             "const int ny = (st.B + kRowTile - 1) / kRowTile;",
-            "const int units = nx * ny * st.T;",
-            "const int u1 = share_cut(units, st.S, blockIdx.x + 1);",
-            "for (int u = share_cut(units, st.S, blockIdx.x); u < u1;) {",
+            "__shared__ TileGroup tg;",
+            "if (tid == 0) tg = tile_group(ny);",
+            "const int G = gridDim.x, b = blockIdx.x;",
+            "const int n = min(ny, G);",
+            "tg.g = ((b + 1) * n - 1) / G;",
+            "const int first = tg.g * G / n;",
+            "tg.rank = b - first;",
+            "tg.size = (tg.g + 1) * G / n - first;",
+            "tg.y0 = tg.g * ny / n;",
+            "tg.y1 = (tg.g + 1) * ny / n;",
+            "const int y0 = tg.y0;",
+            "const int units = nx * (tg.y1 - y0) * st.T;",
+            "const int u1 = share_cut(units, st.S, tg.rank + 1, tg.size);",
+            "for (int u = share_cut(units, st.S, tg.rank, tg.size); u < u1;) {",
             "const int u = static_cast<int>(static_cast<long long>(units) * b "
-            "/ gridDim.x);",
+            "/ size);",
             "const int r = u % S;",
             "return r <= kShareSnap ? u - r : S - r <= kShareSnap ? u + S - r "
             ": u;",
             "const int tile = u / st.T;",
             "const int t0 = tile * st.T;",
             "const int s1 = min(st.T, u1 - t0);",
-            "fn(ext_item<SEG>(st, tile % nx, tile / nx, u - t0, s1));",
+            "fn(ext_item<SEG>(st, tile % nx, y0 + tile / nx, u - t0, s1));",
             "u = t0 + s1;",
-            "for (int blk = blockIdx.x; blk < a.rot_blocks; "
-            "blk += gridDim.x) {",
+            # rotdec on the group's rows alone, rotdec_rows unchanged
+            "const int b0 = tg.y0 * kRowTile;",
+            "ra.nrows = (min(st.B, tg.y1 * kRowTile) - b0) * st.kp1;",
+            "const int rows = kRotThreads >> ra.tpr_log;",
+            "for (int blk = tg.rank; blk < (ra.nrows + rows - 1) / rows; "
+            "blk += tg.size) {",
+            "rotdec_rows<L, ND, D>( "
+            "acc + static_cast<size_t>(b0) * st.kp1 * st.N, "
+            "abar + static_cast<size_t>(i) * a.B + b0, "
+            "dec + static_cast<size_t>(b0) * E::kLeaves * st.KB, ra, blk, tid,",
+            "const int row0 = blk * rows;",
+            "const int here = min(rows, a.nrows - row0);",
             "return (B * kp1 + plan.rows - 1) / plan.rows;",
             "int tpr_log = nbit - 2 - depth;",
             "} while (seen < target);"):
         assert text in src, text
-    # each role passes grid_sync twice a step, the targets rising by the
-    # grid each time: the producer warpgroup and the consumers, so the
-    # block's barriers pair up; both walk for_share
+    # each role passes group_sync twice a step on the group's counter, the
+    # targets rising by the group's size each time: the producer
+    # warpgroup and the consumers, so the block's barriers pair up; both
+    # walk for_share
     for j in (1, 2):
-        assert src.count(f"grid_sync(arrivals, gridDim.x * (2 * i + {j}));") \
-            == 2
-    assert src.count("for_share<SEG>(st, nx, ny, [&](const ExtItem& it) {") \
+        assert src.count(
+            f"group_sync(arrivals + tg.g * kArrivalStride, "
+            f"tg.size * (2 * i + {j}));") == 2
+    assert "grid_sync" not in src
+    assert src.count("for_share<SEG>(st, nx, tg, [&](const ExtItem& it) {") \
         == 2
+    assert BR.ARRIVAL_STRIDE == C["kArrivalStride"]
 
 
-def share_cut(units: int, S: int, b: int, grid: int) -> int:
-    """share_cut: cut b of grid at b/grid of the units, moved to the
-    nearest multiple of S within kShareSnap."""
-    u = units * b // grid
+def share_cut(units: int, S: int, b: int, size: int) -> int:
+    """share_cut: cut b of a group of `size` blocks at b/size of the
+    units, moved to the nearest multiple of S within kShareSnap."""
+    u = units * b // size
     r, snap = u % S, C["kShareSnap"]
     return u - r if r <= snap else u + S - r if S - r <= snap else u
 
 
-def share_items(blk: int, grid: int, nx: int, ny: int, T: int,
+def tile_group(blk: int, grid: int, ny: int) -> tuple:
+    """tile_group: (group, rank, size, y0, y1) of block blk."""
+    n = min(ny, grid)
+    g = ((blk + 1) * n - 1) // grid
+    first = g * grid // n
+    return (g, blk - first, (g + 1) * grid // n - first, g * ny // n,
+            (g + 1) * ny // n)
+
+
+def share_items(rank: int, size: int, nx: int, y0: int, y1: int, T: int,
                 S: int) -> list:
-    """for_share's items of block blk: (x, y, s0, s1) in order."""
-    units = nx * ny * T
-    u, u1 = share_cut(units, S, blk, grid), share_cut(units, S, blk + 1, grid)
+    """for_share's items of the block of rank `rank` in a group of `size`
+    blocks owning row tiles [y0, y1): (x, y, s0, s1) in order."""
+    units = nx * (y1 - y0) * T
+    u, u1 = (share_cut(units, S, rank, size),
+             share_cut(units, S, rank + 1, size))
     out = []
     while u < u1:
         tile = u // T
         t0 = tile * T
         s0, s1 = u - t0, min(T, u1 - t0)
-        out.append((tile % nx, tile // nx, s0, s1))
+        out.append((tile % nx, y0 + tile // nx, s0, s1))
         u = t0 + s1
     return out
 
 
-WALK_CASES = [(P.TFHEPP_128, 4, 2, B) for B in (1, 48, 63, 64, 65, 160, 480,
-                                                1408)] + \
-    [(P.CONCRETE, 4, 0, B) for B in (1, 160, 640)] + \
-    [(P.CGGI19, 4, 1, 48), (P.TFHEPP_128, 3, 0, 160), (P.TINY_K2, 4, 0, 3),
-     (P.PALLAS_KAR, 4, 2, 129)]
+def _published_walk_cases() -> list:
+    """Every published set at its own depth at the AES-like and edge row
+    counts where rotation_plan takes the persistent kernel on an H100."""
+    out = []
+    for params in (P.TFHEPP_128, P.TFHEPP_128_BG8, P.TFHEPP_80, P.CGGI19,
+                   P.CONCRETE):
+        lp = params.lvl1
+        depth = BR.kar_depth(params)
+        for B in (1, 48, 64, 65, 128, 160, 320, 480, 1408):
+            if BR.rotation_plan(B, lp.n, lp.k + 1, _digit_rows_of(params),
+                                H100_SMS, depth)[1]:
+                out.append((params, 4, depth, B, None))
+    return out
 
 
-@pytest.mark.parametrize(
-    "params,nlimbs,depth,B", WALK_CASES,
-    ids=[f"{p.name}-limbs{nl}-d{d}-B{B}" for p, nl, d, B in WALK_CASES])
-def test_persistent_walk_covers_every_item_once(params, nlimbs, depth, B):
-    """In a step of the persistent kernel the blocks' shares take every
-    (output tile, batch tile, limb, stage) of the step once, each block
-    within 1 + 2 kShareSnap stages of the others, each item inside one
-    tile; every leaf
-    a range cuts is folded at its end (the consumer's rule), so each
-    output quarter sums each stage of each leaf that feeds it once. Its
-    rotdec walk takes every block of rotdec_kernel's grid once, so every
-    row (b, j) once. The barrier counter's targets rise by the grid at
-    each of the 2 n0 barriers and stay inside 32 bits."""
+#: cases whose shares in a group lie within 1 + 2 kShareSnap stages of
+#: each other (the rule allows 1 + 4 kShareSnap: each of a share's two cuts
+#: moves up to kShareSnap)
+TIGHT_WALK_CASES = [(P.TFHEPP_128, 4, 2, B, None)
+                    for B in (1, 48, 63, 64, 65, 160, 480, 1408)] + \
+    [(P.CONCRETE, 4, 0, B, None) for B in (1, 160, 640)] + \
+    [(P.CGGI19, 4, 1, 48, None), (P.TFHEPP_128, 3, 0, 160, None),
+     (P.TINY_K2, 4, 0, 3, None), (P.PALLAS_KAR, 4, 2, 129, None)]
+WALK_CASES = TIGHT_WALK_CASES + [c for c in _published_walk_cases()
+                                 if c not in TIGHT_WALK_CASES]
+#: grids below the plan's, as the tests and benchmarks may force: fewer
+#: blocks than row tiles, one block; TINY_K2's rotdec blocks (128 rows)
+#: straddle its 192-row tiles
+WALK_CASES += [(P.TFHEPP_128, 4, 2, 480, 5), (P.TFHEPP_128, 4, 2, 300, 1),
+               (P.CONCRETE, 4, 0, 640, 7), (P.TINY_K2, 4, 0, 1000, 132),
+               (P.TINY_K2, 4, 0, 1000, 3)]
+
+
+def _walk_id(case) -> str:
+    p, nl, d, B, grid = case
+    return f"{p.name}-limbs{nl}-d{d}-B{B}" + (f"-grid{grid}" if grid else "")
+
+
+@pytest.mark.parametrize("params,nlimbs,depth,B,grid", WALK_CASES,
+                         ids=[_walk_id(c) for c in WALK_CASES])
+def test_persistent_walk_covers_every_item_once(params, nlimbs, depth, B,
+                                                grid):
+    """In a step of the persistent kernel every block is in one row-tile
+    group, the groups' sizes one apart; the blocks' shares take every
+    (output tile, batch tile, limb, stage) of the step once, and only the
+    group owning the batch tile takes it; each block within 1 + 2
+    kShareSnap stages of the others in its group, each item inside one
+    tile; every leaf a range cuts is folded at its end (the consumer's
+    rule), so each output quarter sums each stage of each leaf that feeds
+    it once. The rotdec walk takes every row (b, j) once, in the group
+    owning b's tile. Each group's counter targets rise by its size at each
+    of the 2 n0 barriers and stay inside 32 bits; the groups are
+    persistent_groups'. grid None is rotation_plan's. A share is within
+    1 + 4 kShareSnap stages of the others (each of its two cuts moves up
+    to kShareSnap), within 1 + 2 kShareSnap in TIGHT_WALK_CASES."""
     lp = params.lvl1
     N, kp1, I = lp.n, lp.k + 1, _digit_rows_of(params)
-    split, grid = BR.rotation_plan(B, N, kp1, I, H100_SMS, depth)
-    assert split > 1 and grid > 0
+    tight = (params, nlimbs, depth, B, grid) in TIGHT_WALK_CASES
+    split, planned = BR.rotation_plan(B, N, kp1, I, H100_SMS, depth)
+    if grid is None:
+        assert split > 1 and planned > 0
+        grid = planned
     nx, ny = kernel_tiles(B, N, kp1, depth)
     T = kernel_stages(N, I, depth)
     S = T // 3 ** depth
-    seen, fed, work = {}, {}, []
-    for blk in range(grid):
-        items = share_items(blk, grid, nx, ny, T, S)
-        work.append(sum(s1 - s0 for _, _, s0, s1 in items))
+    groups = [tile_group(blk, grid, ny) for blk in range(grid)]
+    n = BR.persistent_groups(B, grid)
+    assert n == min(ny, grid) and {g for g, *_ in groups} == set(range(n))
+    sizes = {g: size for g, _, size, _, _ in groups}
+    assert max(sizes.values()) - min(sizes.values()) <= 1
+    assert sum(sizes.values()) == grid
+    for g in range(n):
+        members = sorted((rank, size, y0, y1) for gg, rank, size, y0, y1
+                         in groups if gg == g)
+        assert [m[0] for m in members] == list(range(sizes[g]))
+        assert len({m[1:] for m in members}) == 1
+    owner = {}
+    for g, _, _, y0, y1 in groups:
+        for y in range(y0, y1):
+            assert owner.setdefault(y, g) == g
+    assert sorted(owner) == list(range(ny))
+    seen, fed, work = {}, {}, {}
+    for g, rank, size, y0, y1 in groups:
+        items = share_items(rank, size, nx, y0, y1, T, S)
+        work.setdefault(g, []).append(sum(s1 - s0 for *_, s0, s1 in items))
         for x, y, s0, s1 in items:
-            assert 0 <= s0 < s1 <= T and x < nx and y < ny
+            assert 0 <= s0 < s1 <= T and x < nx and y0 <= y < y1
+            assert owner[y] == g
             folds = [s for s in range(s0, s1) if s + 1 == s1
                      or (s + 1) % S == 0]
             for s in range(s0, s1):
@@ -442,16 +538,23 @@ def test_persistent_walk_covers_every_item_once(params, nlimbs, depth, B):
     assert len(seen) == nx * ny * nlimbs * T
     assert set(fed.values()) == {1}
     assert len(fed) == nx * ny * 2 ** depth * 2 ** depth * S
-    assert max(work) - min(work) <= 1 + 2 * C["kShareSnap"]
+    for w in work.values():
+        assert max(w) - min(w) <= 1 + (2 if tight else 4) * C["kShareSnap"]
+    # rotdec: the group's rows (b, j) from b0 = 64 y0 on, rotdec_rows'
+    # blocks of `rows` rows relative to it, strided by the group's size
     rows = rotdec_rows_a_block(N, depth)
-    rot_blocks = -(-B * kp1 // rows)
     covered = {}
-    for blk in range(grid):
-        for rb in range(blk, rot_blocks, grid):
-            for row in range(rb * rows, min((rb + 1) * rows, B * kp1)):
+    for g, rank, size, y0, y1 in groups:
+        b0 = ROW_TILE * y0
+        nrows = (min(B, ROW_TILE * y1) - b0) * kp1
+        for rb in range(rank, -(-nrows // rows), size):
+            for rel in range(rb * rows, min((rb + 1) * rows, nrows)):
+                row = b0 * kp1 + rel
+                assert owner[row // kp1 // ROW_TILE] == g
                 covered[row] = covered.get(row, 0) + 1
     assert set(covered.values()) == {1} and len(covered) == B * kp1
-    targets = [grid * (j + 1) for j in range(2 * params.lvl0.dim)]
+    targets = [max(sizes.values()) * (j + 1)
+               for j in range(2 * params.lvl0.dim)]
     assert targets[-1] < 2 ** 32
 
 
